@@ -4,7 +4,8 @@
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --only-kernels  # phases 1-4: build and check kernels
 
-Phases, each printed on its own lines:
+Phases, each printed on its own lines; every path is driven with the launch
+counts at 0 just before it and read just after:
 
 1. device: ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    and ``torch.cuda.get_device_name()``;
@@ -15,14 +16,26 @@ Phases, each printed on its own lines:
 4. K2 (``ops/flash_attention.py``) against its plain version (O and lse):
    causal and not, S = 63 and 2048, D = 16 and 128, bf16 and f32, and the
    Llama smoke's shape; kernel / plain / SDPA times and the bound there;
+   then K3 and K4 (the flash backward): gradients through the autograd
+   Function against ``flash_backward_plain`` on the same out and lse, causal
+   and not, S = 63 and 2048, D = 16, 64 and 128, bf16 and f32, one f32 shape
+   also against the autograd of ``reference_attention``; kernel / plain /
+   bound times at the 1B training shape and at S = 2048, D = 128, beside
+   SDPA's backward;
 5. the matmul smoke through the agent's runner with ``--kernel torch`` and
    ``--kernel cuda`` (the latter must show K1 launches);
 6. the Llama-3-8B inference smoke at full width (32 layers, dim 4096, GQA
    32/8, vocab 128256, bf16, batch 4): all three oracles and K2 launches;
    the same smoke with the cache off-by-one injected, which the transcript
    oracle must catch; then ``entry()``'s tiny forward;
-7. one ``{"kernels": [...]}`` JSON line;
-8. last line ``{"ok": true, "device": {...}}``.
+7. Llama-3.2-1B training at full width (16 layers, dim 2048, GQA 32/8,
+   vocab 128256; f32 parameters, bf16 compute, flash attention, AdamW):
+   8 steps on one fixed batch of 4 x 1024 tokens; the loss must be finite
+   and strictly decreasing, each step must launch K2, K3 and K4 once per
+   layer, and the flash path's gradient must match the einsum path's on the
+   same weights; ms/step, tokens/s, MFU and peak memory;
+8. one ``{"kernels": [...]}`` JSON line, then the ``nvidia-smi`` line;
+9. last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without CUDA, or run
 outside the repository, it fails at once.
@@ -42,7 +55,14 @@ K1_TOL = 1e-4  # rel. to max|plain|: only the f32 summation order differs
 # value; in f32 only the summation order differs.
 K2_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 LSE_TOL = 1e-4  # lse is f32 on both sides
+# K3/K4's dq, dk, dv, relative to max|plain|: in f32 only the summation order
+# differs; in bf16 both sides round one f32 value to bf16 once.
+K34_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 TRANSCRIPT_LIMIT = 1e-2  # the Llama smoke's argmax margin (smoke/llama_infer.py)
+# The 1B training phase: batch x sequence, steps, and the flash-vs-einsum
+# gradient limit (the Llama smoke's flash limit).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+TRAIN_GRAD_LIMIT = 5e-2
 
 
 def fail(message: str) -> None:
@@ -156,17 +176,11 @@ def check_k2(torch, peaks) -> dict:
             for D in (16, 128):
                 for dtype in (torch.bfloat16, torch.float32):
                     compare(*inputs(2, 4, S, D, dtype), causal)
-    q, k, v = inputs(1, 1, 8, 16, torch.float32)
-    q.requires_grad_(True)
-    try:
-        flash_forward(q, k, v)
-        fail("K2 ran a call that needs a gradient")
-    except NotImplementedError:
-        say("K2 with requires_grad: NotImplementedError (flash backward not ported) ok")
 
     main = None
-    # The Llama-3-8B smoke's no-cache forward (oracle 3), then a long sequence.
-    for B, H, S, D in ((4, 32, 63, 128), (1, 32, 2048, 128)):
+    # The Llama-3-8B smoke's no-cache forward (oracle 3), the Llama-3.2-1B
+    # training forward, then a long sequence.
+    for B, H, S, D in ((4, 32, 63, 128), (4, 32, 1024, 64), (1, 32, 2048, 128)):
         q, k, v = inputs(B, H, S, D, torch.bfloat16)
         err = compare(q, k, v, True)
         ms = time_ms(lambda: flash_forward(q, k, v, True))
@@ -182,6 +196,239 @@ def check_k2(torch, peaks) -> dict:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib)
     return main
+
+
+def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
+    import torch.nn.functional as F
+
+    from tpu_cc_manager_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def inputs(B, H, S, D, dtype):
+        return [torch.randn((B, H, S, D), generator=gen, device="cuda", dtype=dtype)
+                for _ in range(4)]
+
+    def compare(q, k, v, g, causal) -> dict:
+        """Gradients through the autograd Function (K2, then K3 and K4)
+        against flash_backward_plain on the kernel's own out and lse; fail on
+        a mismatch. Returns each gradient's max abs error."""
+        B, H, S, D = q.shape
+        dtype = str(q.dtype)[6:]
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        grads = torch.autograd.grad(fa.flash_attention(*leaves, causal), leaves, g)
+        with torch.no_grad():
+            out, lse = fa.flash_forward(q, k, v, causal)
+            refs = fa.flash_backward_plain(q, k, v, out, lse, g, causal)
+        torch.cuda.synchronize()
+        tol = K34_TOL[dtype]
+        errs, parts, ok = {}, [], True
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            err = float((got.float() - ref.float()).abs().max())
+            rel = err / float(ref.float().abs().max())
+            ok = ok and got.dtype == q.dtype and bool(torch.isfinite(got).all()) and rel <= tol
+            errs[name] = err
+            parts.append(f"{name} max_abs_err={err:.3e} rel_err={rel:.3e}")
+        say(f"K3/K4 B={B} H={H} S={S} D={D} causal={causal} {dtype}: {' '.join(parts)} "
+            f"(tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"K3/K4 disagree with flash_backward_plain (B={B} H={H} S={S} D={D} "
+                 f"causal={causal} {dtype})")
+        return errs
+
+    for causal in (True, False):
+        for S in (63, 2048):
+            for D in (16, 64, 128):
+                for dtype in (torch.bfloat16, torch.float32):
+                    compare(*inputs(2, 4, S, D, dtype), causal)
+
+    # Cross-check at one f32 shape: the plain reference's own autograd.
+    q, k, v, g = (t.requires_grad_(True) for t in inputs(2, 4, 2048, 64, torch.float32))
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, True), (q, k, v), g)
+    want = torch.autograd.grad(fa.reference_attention(q, k, v, True), (q, k, v), g)
+    rels = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want)]
+    say(f"K3/K4 vs autograd of reference_attention B=2 H=4 S=2048 D=64 f32 causal: "
+        f"rel_err dq={rels[0]:.3e} dk={rels[1]:.3e} dv={rels[2]:.3e} (tol {K34_TOL['float32']:g})")
+    if max(rels) > K34_TOL["float32"]:
+        fail("K3/K4 disagree with the autograd of reference_attention")
+    del q, k, v, g, got, want
+
+    main3 = main4 = None
+    # The Llama-3.2-1B training step's attention, then a long sequence.
+    for B, H, S, D in ((4, 32, 1024, 64), (1, 32, 2048, 128)):
+        q, k, v, g = inputs(B, H, S, D, torch.bfloat16)
+        errs = compare(q, k, v, g, True)
+        out, lse = fa.flash_forward(q, k, v, True)
+        delta = fa.attention_delta(out, g)
+        args = (q, k, v, g, lse, delta, True)
+        k3_ms = time_ms(lambda: fa.flash_backward_dq(*args))
+        k4_ms = time_ms(lambda: fa.flash_backward_dkv(*args))
+        k3_plain = time_ms(lambda: fa.flash_backward_dq_plain(*args), iters=3, warmup=1)
+        k4_plain = time_ms(lambda: fa.flash_backward_dkv_plain(*args), iters=3, warmup=1)
+        # Yardstick only (the port never calls SDPA): SDPA's backward, as
+        # forward-and-backward minus forward.
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa = lambda: F.scaled_dot_product_attention(*leaves, is_causal=True)  # noqa: E731
+        sdpa_fwd = time_ms(sdpa)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, g)) - sdpa_fwd
+        pairs = B * H * S * (S + 1) / 2  # causal (query, key) pairs
+        lse_delta_bytes = 2 * B * H * S * 4
+        k3_bound = bound_ms(3 * 2.0 * D * pairs, 5.0 * B * H * S * D * q.element_size()
+                            + lse_delta_bytes, peaks["bf16"], peaks["bw"])
+        k4_bound = bound_ms(4 * 2.0 * D * pairs, 6.0 * B * H * S * D * q.element_size()
+                            + lse_delta_bytes, peaks["bf16"], peaks["bw"])
+        say(f"K3/K4 timing B={B} H={H} S={S} D={D} bf16 causal: "
+            f"K3 kernel_ms={k3_ms:.4f} plain_ms={k3_plain:.4f} bound_ms={k3_bound[0]:.5f} "
+            f"({k3_bound[1]}); K4 kernel_ms={k4_ms:.4f} plain_ms={k4_plain:.4f} "
+            f"bound_ms={k4_bound[0]:.5f} ({k4_bound[1]}); "
+            f"sdpa_backward_ms={sdpa_bwd:.4f} (dq, dk, dv together; sdpa forward {sdpa_fwd:.4f})")
+        if main3 is None:
+            common = dict(library_ms=sdpa_bwd, library_call="SDPA backward (dq, dk, dv)")
+            main3 = dict(max_abs_err=errs["dq"], ms=k3_ms, plain_ms=k3_plain,
+                         bound_ms=k3_bound[0], bound_by=k3_bound[1], **common)
+            main4 = dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=k4_ms, plain_ms=k4_plain,
+                         bound_ms=k4_bound[0], bound_by=k4_bound[1], **common)
+        del q, k, v, g, out, lse, delta, leaves
+    return main3, main4
+
+
+def grad_rel_err(got: dict, want: dict, names) -> float:
+    """||got - want|| / ||want|| over the named gradients taken together."""
+    num = sum(float((got[n].float() - want[n].float()).pow(2).sum()) for n in names)
+    den = sum(float(want[n].float().pow(2).sum()) for n in names)
+    return (num / den) ** 0.5
+
+
+# Device-time groups of a training step, by kernel name (first match wins).
+KERNEL_GROUPS = (
+    ("K2 flash forward", ("flash_fwd_kernel",)),
+    ("K3 flash dQ", ("flash_bwd_dq_kernel",)),
+    ("K4 flash dK/dV", ("flash_bwd_dkv_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sgemm")),
+    ("AdamW (foreach)", ("multi_tensor_apply",)),
+    ("softmax", ("softmax",)),
+)
+
+
+def profile_step(torch, step, state, tokens) -> None:
+    """One more train step under torch.profiler (neither timed nor counted
+    with the others): device time by kernel group and the top kernels, and
+    the device's busy share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, loss = step(state, tokens)
+        float(loss)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel = {}
+    for evt in prof.key_averages():
+        # Kernels only: a CPU op, and a user annotation's range on the device
+        # timeline, carry the time of the kernels inside them too.
+        if (evt.device_type == DeviceType.CUDA and not evt.is_user_annotation
+                and evt.self_device_time_total > 0):
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
+    busy = sum(by_kernel.values())
+    groups = {}
+    for name, ms in by_kernel.items():
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(key in name.lower() for key in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    say(f"train profile (one extra step): wall_ms={wall_ms:.2f} device_busy_ms={busy:.2f} "
+        f"idle_share={1 - busy / wall_ms:.4f}; by group ms: "
+        + json.dumps({g: round(ms, 3) for g, ms in sorted(groups.items(), key=lambda x: -x[1])}))
+    for name, ms in sorted(by_kernel.items(), key=lambda x: -x[1])[:12]:
+        say(f"train profile kernel: {ms:9.3f} ms  {name[:140]}")
+
+
+def train_llama_1b(torch, peaks) -> dict:
+    """The training slice's main path at Llama-3.2-1B full width: 8 AdamW
+    steps on one fixed batch with K2/K3/K4 in every layer, then the flash
+    path's gradient against the einsum path's on the same weights."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import numpy as np
+
+    from tpu_cc_manager_torch import ops
+    from tpu_cc_manager_torch.models.llama import LlamaConfig, LlamaModel
+    from tpu_cc_manager_torch.parallel.train import (
+        cross_entropy,
+        make_llama_train_state,
+        make_llama_train_step,
+    )
+
+    cfg = LlamaConfig.llama3_2_1b()  # f32 parameters, bf16 compute
+    if not cfg.resolved_use_flash("cuda") or cfg.remat:
+        fail("the 1B training config must run flash attention without remat")
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    ).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = make_llama_train_state(cfg, device="cuda", seed=0)
+    step = make_llama_train_step(cfg)
+    losses, seconds = [], []
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        losses.append(float(loss))  # waits for the step
+        seconds.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile_step(torch, step, state, tokens)
+    del state, step, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ms = 1e3 * statistics.median(seconds[1:])  # the first step pays for lazy init
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    L, H, D, S = cfg.n_layers, cfg.n_heads, cfg.head_dim, TRAIN_SEQ
+    # Model FLOPs: 6 per token per matmul weight (the embedding is a gather,
+    # the norm scales no matmul), plus causal attention's QK^T and PV, 3x for
+    # forward and backward.
+    mm_params = cfg.param_count() - cfg.vocab_size * cfg.dim - (2 * L + 1) * cfg.dim
+    flops = 6.0 * mm_params * n_tok + 3 * L * 2 * 2.0 * TRAIN_BATCH * H * D * S * (S + 1) / 2
+    mfu = flops / (ms / 1e3) / peaks["bf16"]
+    say(f"train Llama-3.2-1B (params {cfg.param_count()}, f32 master weights, bf16 compute, "
+        f"flash, batch {TRAIN_BATCH}x{TRAIN_SEQ}, AdamW lr 3e-4 wd 0.01): losses "
+        f"{[round(x, 6) for x in losses]}")
+    say(f"train: step_ms median(steps 2-{TRAIN_STEPS})={ms:.2f} first={1e3 * seconds[0]:.2f} "
+        f"tokens_per_sec={n_tok / (ms / 1e3):.1f} mfu={mfu:.4f} (flops/step {flops:.4e} = "
+        f"6*{mm_params}*{n_tok} + attention 3*{L}*2*2*B*H*D*S(S+1)/2; bf16 peak) "
+        f"max_memory_allocated_gb={peak_gb:.2f} launches={launches}")
+    if not all(np.isfinite(losses)) or any(b >= a for a, b in zip(losses, losses[1:])):
+        fail(f"1B training loss is not finite and strictly decreasing: {losses}")
+    want = {"K1": 0, "K2": L * TRAIN_STEPS, "K3": L * TRAIN_STEPS, "K4": L * TRAIN_STEPS}
+    if launches != want:
+        fail(f"1B training launched {launches}, want {want} ({L} per step each of K2/K3/K4)")
+
+    def grads(use_flash: bool) -> dict:
+        model = LlamaModel(dataclasses.replace(cfg, use_flash=use_flash), device="cuda", seed=0)
+        logits, _ = model(tokens[:, :-1])
+        loss = cross_entropy(logits, tokens[:, 1:])
+        del logits
+        loss.backward()
+        out = {n: p.grad for n, p in model.named_parameters()}
+        del model, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    flash = grads(True)
+    einsum = grads(False)
+    rel = grad_rel_err(flash, einsum, list(einsum))
+    per = {n: grad_rel_err(flash, einsum, [f"blocks.attn.{n}"]) for n in ("wq", "wk", "wv", "wo")}
+    say(f"train: flash (K2/K3/K4) vs einsum gradient on the same weights: whole rel_err="
+        f"{rel:.4e} (limit {TRAIN_GRAD_LIMIT:g}); "
+        + " ".join(f"{n}={e:.4e}" for n, e in per.items()))
+    del flash, einsum
+    torch.cuda.empty_cache()
+    if not rel < TRAIN_GRAD_LIMIT:
+        fail(f"1B flash-path gradient differs from the einsum path by {rel:.4e}")
+    return {"launches": launches, "losses": losses, "step_ms": ms, "grad_rel_err": rel}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -236,14 +483,16 @@ def main(argv: list[str] | None = None) -> int:
     # --- 3. and 4. kernels against their plain versions ----------------------
     k1 = check_k1(torch, peaks)
     k2 = check_k2(torch, peaks)
+    k3, k4 = check_k3_k4(torch, peaks)
     if args.only_kernels:
-        say(json.dumps({"kernels_checked": {"K1": k1, "K2": k2}}))
+        say(json.dumps({"kernels_checked": {"K1": k1, "K2": k2, "K3": k3, "K4": k4}}))
         return 0
 
     # --- 5. matmul smoke, both kernels -----------------------------------------
     from tpu_cc_manager_torch.smoke.runner import SmokeError, run_workload_subprocess
 
-    launches = {}
+    # Launches per kernel and path, each path run with the counts at 0.
+    paths = {}
     for kernel in ("torch", "cuda"):
         try:
             res = run_workload_subprocess("matmul", timeout_s=300,
@@ -256,8 +505,8 @@ def main(argv: list[str] | None = None) -> int:
         if res["backend"] != "cuda":
             fail(f"matmul smoke ran on {res['backend']}, not the card")
         if kernel == "cuda":
-            launches["K1"] = res["kernel_launches"]["K1"]
-            if launches["K1"] <= 0:
+            paths["matmul smoke"] = res["kernel_launches"]
+            if res["kernel_launches"]["K1"] <= 0:
                 fail("matmul smoke --kernel cuda launched K1 no time")
 
     # --- 6. Llama-3-8B inference smoke, full width ----------------------------
@@ -276,8 +525,8 @@ def main(argv: list[str] | None = None) -> int:
     if not (res["ok"] and res["oracle_ok"] and res["transcript_ok"]
             and rel is not None and rel < 5e-2):
         fail(f"llama smoke oracles failed: {res}")
-    launches["K2"] = res["kernel_launches"]["K2"]
-    if launches["K2"] <= 0:
+    paths["llama smoke"] = res["kernel_launches"]
+    if res["kernel_launches"]["K2"] <= 0:
         fail("llama smoke launched K2 no time")
 
     # The same smoke with every cached-decode position shifted by one (the
@@ -300,28 +549,43 @@ def main(argv: list[str] | None = None) -> int:
     ops.reset_launch_counts()
     logits = forward(*example)
     torch.cuda.synchronize()
-    entry_k2 = ops.launch_counts()["K2"]
+    paths["entry"] = ops.launch_counts()
+    entry_k2 = paths["entry"]["K2"]
     say(f"entry(): logits {tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())} "
         f"K2 launches={entry_k2}")
     if tuple(logits.shape) != (2, 16, 256) or not bool(torch.isfinite(logits).all()):
         fail("entry() forward gave a wrong shape or non-finite logits")
     if entry_k2 <= 0:
         fail("entry() forward launched K2 no time")
+    del logits, forward, example
+    torch.cuda.empty_cache()
 
-    # --- 7. kernel summary ------------------------------------------------------
+    # --- 7. Llama-3.2-1B training, full width -----------------------------------
+    paths["1b training"] = train_llama_1b(torch, peaks)["launches"]
+
+    # --- 8. kernel summary ------------------------------------------------------
+    def counted(name: str) -> dict:
+        by_path = {path: c[name] for path, c in paths.items() if c[name]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    attention = "tpu_cc_manager_torch/csrc/flash_attention.cu"
     kernels = [
         {"name": "K1 tiled_matmul", "route": "cuda",
          "source": "tpu_cc_manager_torch/csrc/matmul.cu",
-         "replaces": "tpu_cc_manager/ops/matmul.py:55",
-         "launches": launches["K1"], **k1},
-        {"name": "K2 flash_forward", "route": "cuda",
-         "source": "tpu_cc_manager_torch/csrc/flash_attention.cu",
-         "replaces": "tpu_cc_manager/ops/flash_attention.py:64",
-         "launches": launches["K2"], **k2},
+         "replaces": "tpu_cc_manager/ops/matmul.py:55", **counted("K1"), **k1},
+        {"name": "K2 flash_forward", "route": "cuda", "source": attention,
+         "replaces": "tpu_cc_manager/ops/flash_attention.py:64", **counted("K2"), **k2},
+        {"name": "K3 flash_backward_dq", "route": "cuda", "source": attention,
+         "replaces": "tpu_cc_manager/ops/flash_attention.py:179", **counted("K3"), **k3},
+        {"name": "K4 flash_backward_dkv", "route": "cuda", "source": attention,
+         "replaces": "tpu_cc_manager/ops/flash_attention.py:231", **counted("K4"), **k4},
     ]
+    for kernel in kernels:
+        if kernel["launches"] <= 0:
+            fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 8. last line -------------------------------------------------------------
+    # --- 9. last line -------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -70,7 +70,7 @@ class TestTiledMatmul:
         a = torch.empty((128, 128), device="meta")
         with pytest.raises(ValueError, match="CUDA"):
             tmm.tiled_matmul(a, a)
-        assert ops.launch_counts() == {"K1": 0, "K2": 0}
+        assert ops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
     @pytest.mark.parametrize("size", [4096, 512, 256, 96, 100, 64, 24, 8])
     def test_default_blocks_clamp_like_jax(self, size, monkeypatch):
@@ -156,7 +156,7 @@ class TestFlashAttention:
         with pytest.raises(ValueError, match="shape"):
             tfa.flash_attention(torch.zeros(1, 2, 8, 16), torch.zeros(1, 2, 9, 16),
                                 torch.zeros(1, 2, 8, 16))
-        assert ops.launch_counts() == {"K1": 0, "K2": 0}
+        assert ops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 
 class TestBuild:

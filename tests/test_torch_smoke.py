@@ -39,7 +39,7 @@ def test_matmul_smoke_passes_on_cpu(kernel):
     assert result["ident_err"] <= 1e-6 and result["rowsum_rel_err"] <= 2e-2
     assert result["blocks"] == ([128, 128, 32] if kernel == "cuda" else None)
     # CPU tensors take the plain version: no kernel launch is counted.
-    assert result["kernel_launches"] == {"K1": 0, "K2": 0}
+    assert result["kernel_launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
     assert result["mfu"] is None
 
 
@@ -57,7 +57,7 @@ def test_llama_smoke_passes_on_cpu():
     assert 0.0 <= result["transcript_margin"] <= 1e-2
     assert result["flash_kernel_rel_err"] is None  # flash is the card's default only
     assert result["model"] == "tiny" and result["backend"] == "cpu"
-    assert result["kernel_launches"] == {"K1": 0, "K2": 0}
+    assert result["kernel_launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
     for key in ("ms_per_token", "hbm_bw_util", "batch", "prefill_tokens_per_sec",
                 "tokens_per_sec", "mfu", "prefill_mfu", "transcript_positions"):
         assert key in result

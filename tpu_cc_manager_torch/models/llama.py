@@ -12,8 +12,10 @@ Numerics follow the JAX model step by step: RMSNorm and RoPE in f32 then a
 cast; projections compute in ``cfg.dtype``; the cached path's scores and
 softmax in f32 with an additive ``-inf`` mask, probabilities cast to
 ``cfg.dtype`` before the PV product; logits with an f32 result. The no-cache
-forward runs the K2 flash kernel (``ops/flash_attention.py``) when
-:meth:`LlamaConfig.resolved_use_flash` is true, which it is on the card.
+forward runs flash attention (``ops/flash_attention.py``: K2 forward, K3/K4
+backward) when :meth:`LlamaConfig.resolved_use_flash` is true, which it is on
+the card. ``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), so with flash on, K2 launches twice per layer.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import math
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tpu_cc_manager_torch.ops.flash_attention import flash_attention
 
@@ -46,6 +49,9 @@ class LlamaConfig:
     # f32 for training; bf16 for inference, where decode is bound by reading
     # every weight each step.
     param_dtype: torch.dtype = torch.float32
+    # Recompute each decoder layer in the backward instead of keeping its
+    # activations (the JAX model's nn.remat).
+    remat: bool = False
     # Flash kernel on the no-cache path. None resolves to True on the card
     # (the CUDA kernel) and False on the CPU (einsum attention).
     use_flash: bool | None = None
@@ -361,7 +367,11 @@ class LlamaModel(nn.Module):
         use_flash = cache is None and cfg.resolved_use_flash(dev)
         for layer in range(cfg.n_layers):
             layer_cache = None if cache is None else (cache[0][layer], cache[1][layer])
-            x = self.blocks(x, layer, phases, mask, layer_cache, position, use_flash)
+            args = (x, layer, phases, mask, layer_cache, position, use_flash)
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(self.blocks, *args, use_reentrant=False)
+            else:
+                x = self.blocks(*args)
         x = self.final_norm(x)
         # bf16 params keep bf16 operands with an f32 result; f32 master
         # weights keep the full-f32 product.

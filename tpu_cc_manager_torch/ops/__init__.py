@@ -2,7 +2,9 @@
 
 - ``matmul.tiled_matmul`` (K1) replaces ``tpu_cc_manager/ops/matmul.py::_mm_kernel``;
 - ``flash_attention.flash_forward`` (K2) replaces
-  ``tpu_cc_manager/ops/flash_attention.py::_fwd_kernel``.
+  ``tpu_cc_manager/ops/flash_attention.py::_fwd_kernel``;
+- ``flash_attention.flash_backward_dq`` (K3) replaces ``_bwd_dq_kernel``;
+- ``flash_attention.flash_backward_dkv`` (K4) replaces ``_bwd_dkv_kernel``.
 
 Each wrapper counts its kernel launches; :func:`launch_counts` reads them
 and :func:`reset_launch_counts` sets them to 0.
@@ -12,14 +14,18 @@ from __future__ import annotations
 
 from tpu_cc_manager_torch.ops import flash_attention, matmul
 
+_WRAPPERS = {
+    "K1": matmul.tiled_matmul,
+    "K2": flash_attention.flash_forward,
+    "K3": flash_attention.flash_backward_dq,
+    "K4": flash_attention.flash_backward_dkv,
+}
+
 
 def launch_counts() -> dict[str, int]:
-    return {
-        "K1": matmul.tiled_matmul.launches,
-        "K2": flash_attention.flash_forward.launches,
-    }
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    matmul.tiled_matmul.launches = 0
-    flash_attention.flash_forward.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

@@ -1,19 +1,24 @@
-"""K2: flash-attention forward (online softmax) as a hand-written CUDA kernel.
+"""Flash attention as hand-written CUDA kernels: K2 forward, K3 dQ, K4 dK/dV.
 
-Port of ``tpu_cc_manager/ops/flash_attention.py`` (forward only). Layout is
-(B, H, S, D) at the public functions, (B*H, S, D) inside, with ``lse`` f32
-shaped (B*H, S, 1) exactly as ``_flash_forward`` returns it.
+Port of ``tpu_cc_manager/ops/flash_attention.py``. Layout is (B, H, S, D) at
+the public functions, (B*H, S, D) inside, with ``lse`` f32 shaped
+(B*H, S, 1) exactly as ``_flash_forward`` returns it.
 
-``flash_forward`` launches ``csrc/flash_attention.cu`` for CUDA tensors and
-runs :func:`flash_forward_plain` (the TPU kernel's blocked algorithm in plain
-PyTorch) for CPU tensors; a CUDA input either launches the kernel or raises.
-The flash backward (K3/K4) is not ported yet, so a CUDA call that would need
-a gradient raises ``NotImplementedError`` instead of running something else.
+- ``flash_forward`` (K2) returns ``(out, lse)``;
+- ``flash_backward_dq`` (K3) and ``flash_backward_dkv`` (K4) rebuild each P
+  block from q, k, v, lse and ``delta = rowsum(dO * O)``;
+- ``flash_attention`` goes through a ``torch.autograd.Function`` whose
+  forward is K2 and whose backward is K3 then K4, the port of the JAX
+  ``custom_vjp``.
 
-``block_q``/``block_k`` tile the plain version as they tile the Pallas
-kernel (rounded up to a multiple of 8 and clamped, :func:`_block_for`). The
-CUDA kernel is compiled for 32-query x 32-key tiles; the result differs only
-in f32 summation order.
+Each wrapper launches ``csrc/flash_attention.cu`` for CUDA tensors and runs
+its plain version (the TPU kernel's blocked algorithm in plain PyTorch) for
+CPU tensors; a CUDA input either launches the kernel or raises.
+
+``block_q``/``block_k`` tile the plain versions as they tile the Pallas
+kernels (rounded up to a multiple of 8 and clamped, :func:`_block_for`). The
+CUDA kernels are compiled for 32-query x 32-key tiles; the result differs
+only in f32 summation order.
 """
 
 from __future__ import annotations
@@ -45,6 +50,15 @@ def reference_attention(q, k, v, causal: bool = True):
         scores = torch.where(mask[None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", probs.to(v.dtype), v)
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# K2: forward
+# ---------------------------------------------------------------------------
 
 
 def flash_forward_plain(q, k, v, causal: bool = True, block_q: int = 128,
@@ -101,28 +115,10 @@ def flash_forward(q, k, v, causal: bool = True, block_q: int = 128,
             f"q, k, v must share one (B, H, S, D) shape "
             f"(got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)})"
         )
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    if _on_cpu(q, k, v):
         return flash_forward_plain(q, k, v, causal, block_q, block_k)
-    return _launch(q, k, v, causal)
-
-
-def _launch(q, k, v, causal: bool):
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(
-            f"flash attention needs q, k, v on one CUDA device "
-            f"(got {q.device}, {k.device}, {v.device})"
-        )
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("flash backward: later slice")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"q, k, v must all be bf16 or all f32 (got {q.dtype}, {k.dtype}, {v.dtype})")
+    _check_launch(q, k, v)
     B, H, S, D = q.shape
-    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim must be a multiple of 8 in [8, {MAX_HEAD_DIM}] (got {D})")
-    if B * H > 65535:
-        raise ValueError(f"B*H={B * H} exceeds the kernel grid's 65535 rows")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash attention needs contiguous (B, H, S, D) inputs")
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S, 1), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
@@ -137,12 +133,219 @@ def _launch(q, k, v, causal: bool):
     return out, lse
 
 
+def _check_launch(q, k, v, *rest):
+    """What the CUDA kernels take: q, k, v (and dO) of one (B, H, S, D) shape
+    and type (bf16 or f32), contiguous, on one CUDA device; ``rest`` after
+    dO holds lse and delta, contiguous f32 (B*H, S, 1)."""
+    tensors = (q, k, v, *rest)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(
+            "flash attention needs every tensor on one CUDA device "
+            f"(got {[str(t.device) for t in tensors]})"
+        )
+    primal = (q, k, v, *rest[:1])
+    if any(t.dtype != q.dtype for t in primal) or q.dtype not in (torch.bfloat16,
+                                                                 torch.float32):
+        raise ValueError(
+            f"q, k, v and dO must all be bf16 or all f32 (got {[t.dtype for t in primal]})"
+        )
+    if any(t.shape != q.shape for t in primal):
+        raise ValueError(f"q, k, v and dO must share one shape (got "
+                         f"{[tuple(t.shape) for t in primal]})")
+    B, H, S, D = q.shape
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim must be a multiple of 8 in [8, {MAX_HEAD_DIM}] (got {D})")
+    if B * H > 65535:
+        raise ValueError(f"B*H={B * H} exceeds the kernel grid's 65535 rows")
+    for t in rest[1:]:
+        if t.dtype != torch.float32 or t.shape != (B * H, S, 1):
+            raise ValueError(f"lse and delta must be f32 {(B * H, S, 1)} "
+                             f"(got {t.dtype} {tuple(t.shape)})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash attention needs contiguous inputs")
+
+
 #: Kernel launches since the last reset (ops.reset_launch_counts()).
 flash_forward.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K3 and K4: backward by block recomputation
+# ---------------------------------------------------------------------------
+
+
+def attention_delta(out, do):
+    """``delta = rowsum(dO * O)`` in f32, shaped (B*H, S, 1) like lse: the
+    softmax-backward correction, computed once outside the kernels as the
+    JAX package does (elementwise and a row sum, nothing of size S^2)."""
+    B, H, S, D = out.shape
+    return (do.float() * out.float()).sum(dim=-1, keepdim=True).reshape(B * H, S, 1)
+
+
+def _flat(t):
+    B, H, S, D = t.shape
+    return t.reshape(B * H, S, D).float()
+
+
+def flash_backward_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
+                            block_q: int = 128, block_k: int = 128):
+    """The plain version of K3: per query block, stream the key blocks up to
+    the causal diagonal, rebuild ``P = exp(s - lse)`` and accumulate
+    ``dQ += dS K`` in f32, with ``dS = P * (dO V^T - delta) * scale``; cast
+    once to q's type. Tail blocks are simply shorter: the phantom rows and
+    keys the TPU kernel pads and masks to exact zeros are absent here."""
+    B, H, S, D = q.shape
+    bq = _block_for(block_q, S)
+    bk = _block_for(block_k, S)
+    qr, kr, vr, dor = _flat(q), _flat(k), _flat(v), _flat(do)
+    scale = 1.0 / (D**0.5)
+    num_k_blocks = -(-S // bk)
+    blocks = []
+    for qi in range(-(-S // bq)):
+        rows = slice(qi * bq, (qi + 1) * bq)
+        q_blk, do_blk = qr[:, rows], dor[:, rows]
+        lse_blk, delta_blk = lse[:, rows], delta[:, rows]
+        q_pos = qi * bq + torch.arange(q_blk.shape[1], device=q.device)[:, None]
+        k_hi = num_k_blocks
+        if causal:
+            k_hi = min(((qi + 1) * bq - 1) // bk + 1, num_k_blocks)
+        acc = torch.zeros_like(q_blk)
+        for ki in range(k_hi):
+            k_blk = kr[:, ki * bk : (ki + 1) * bk]
+            v_blk = vr[:, ki * bk : (ki + 1) * bk]
+            s = (q_blk @ k_blk.transpose(1, 2)) * scale
+            if causal:
+                k_pos = ki * bk + torch.arange(k_blk.shape[1], device=q.device)
+                s = torch.where(k_pos[None, :] <= q_pos, s, NEG_INF)
+            p = torch.exp(s - lse_blk)
+            ds = p * (do_blk @ v_blk.transpose(1, 2) - delta_blk) * scale
+            acc = acc + ds @ k_blk
+        blocks.append(acc)
+    return torch.cat(blocks, dim=1).to(q.dtype).reshape(B, H, S, D)
+
+
+def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
+                             block_q: int = 128, block_k: int = 128):
+    """The plain version of K4: per key block, stream the query blocks from
+    the causal start ``(ki * block_k) // block_q``, rebuild P and accumulate
+    ``dV += P^T dO`` and ``dK += dS^T Q`` in f32; cast once to k's and v's
+    types. Returns ``(dk, dv)``."""
+    B, H, S, D = q.shape
+    bq = _block_for(block_q, S)
+    bk = _block_for(block_k, S)
+    qr, kr, vr, dor = _flat(q), _flat(k), _flat(v), _flat(do)
+    scale = 1.0 / (D**0.5)
+    dks, dvs = [], []
+    for ki in range(-(-S // bk)):
+        k_blk = kr[:, ki * bk : (ki + 1) * bk]
+        v_blk = vr[:, ki * bk : (ki + 1) * bk]
+        k_pos = ki * bk + torch.arange(k_blk.shape[1], device=q.device)
+        dk = torch.zeros_like(k_blk)
+        dv = torch.zeros_like(v_blk)
+        for qi in range((ki * bk) // bq if causal else 0, -(-S // bq)):
+            rows = slice(qi * bq, (qi + 1) * bq)
+            q_blk, do_blk = qr[:, rows], dor[:, rows]
+            s = (q_blk @ k_blk.transpose(1, 2)) * scale
+            if causal:
+                q_pos = qi * bq + torch.arange(q_blk.shape[1], device=q.device)[:, None]
+                s = torch.where(k_pos[None, :] <= q_pos, s, NEG_INF)
+            p = torch.exp(s - lse[:, rows])
+            dv = dv + p.transpose(1, 2) @ do_blk
+            ds = p * (do_blk @ v_blk.transpose(1, 2) - delta[:, rows]) * scale
+            dk = dk + ds.transpose(1, 2) @ q_blk
+        dks.append(dk)
+        dvs.append(dv)
+    return (torch.cat(dks, dim=1).to(k.dtype).reshape(B, H, S, D),
+            torch.cat(dvs, dim=1).to(v.dtype).reshape(B, H, S, D))
+
+
+def flash_backward_plain(q, k, v, out, lse, do, causal: bool = True,
+                         block_q: int = 128, block_k: int = 128):
+    """The plain version of ``_flash_backward``: delta, then the dQ walk and
+    the dK/dV walk. Returns ``(dq, dk, dv)``, each in its primal's type."""
+    delta = attention_delta(out, do)
+    dq = flash_backward_dq_plain(q, k, v, do, lse, delta, causal, block_q, block_k)
+    dk, dv = flash_backward_dkv_plain(q, k, v, do, lse, delta, causal, block_q, block_k)
+    return dq, dk, dv
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True,
+                      block_q: int = 128, block_k: int = 128):
+    """K3: dQ (B, H, S, D) in q's type."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_backward_dq_plain(q, k, v, do, lse, delta, causal, block_q, block_k)
+    _check_launch(q, k, v, do, lse, delta)
+    B, H, S, D = q.shape
+    dq = torch.empty_like(q)
+    lib = _build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.tcc_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), B * H, S, D, 1.0 / (D**0.5), int(causal),
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(rc, "tcc_flash_bwd_dq")
+    flash_backward_dq.launches += 1
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                       block_q: int = 128, block_k: int = 128):
+    """K4: ``(dk, dv)``, each (B, H, S, D) in its primal's type."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_backward_dkv_plain(q, k, v, do, lse, delta, causal, block_q, block_k)
+    _check_launch(q, k, v, do, lse, delta)
+    B, H, S, D = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.tcc_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, S, D, 1.0 / (D**0.5),
+            int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(rc, "tcc_flash_bwd_dkv")
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+#: Kernel launches since the last reset (ops.reset_launch_counts()).
+flash_backward_dq.launches = 0
+flash_backward_dkv.launches = 0
+
+
+def flash_backward(q, k, v, out, lse, do, causal: bool = True, block_q: int = 128,
+                   block_k: int = 128):
+    """``_flash_backward``: delta, then K3 and K4. Returns ``(dq, dk, dv)``."""
+    do = do.contiguous()  # the Llama's transpose hands dO over strided
+    delta = attention_delta(out, do)
+    dq = flash_backward_dq(q, k, v, do, lse, delta, causal, block_q, block_k)
+    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, causal, block_q, block_k)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX ``custom_vjp``: forward K2, saving q, k, v, out and lse;
+    backward K3 and K4."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        out, lse = flash_forward(q, k, v, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.static_args = (causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g, *ctx.static_args)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
                     block_k: int = 128):
-    """Fused attention. q/k/v: (B, H, S, D); returns (B, H, S, D)."""
-    out, _ = flash_forward(q, k, v, causal, block_q, block_k)
-    return out
+    """Fused attention with the flash backward. q/k/v: (B, H, S, D);
+    returns (B, H, S, D)."""
+    return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
