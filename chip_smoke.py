@@ -14,14 +14,16 @@ counts at 0 just before it and read just after:
    1024x4096x2048, f32 512^3, with kernel / plain / ``torch.mm`` times and
    the card's bound;
 4. K2 (``ops/flash_attention.py``) against its plain version (O and lse):
-   causal and not, S = 63 and 2048, D = 16 and 128, bf16 and f32, and the
-   Llama smoke's shape; kernel / plain / SDPA times and the bound there;
+   causal and not, S = 63, 200 and 2048, D = 16, 64 and 128, bf16 and f32;
+   each case names the kernel that ran (``_variant``: bf16 at D = 64 or 128
+   must take the wgmma kernel "sm90", the rest the CUDA-core kernel "simt");
+   kernel / plain / SDPA / bound times and TFLOP/s at the 8B smoke's, the 1B
+   training and a long shape, and the simt kernel at ``entry()``'s shape;
    then K3 and K4 (the flash backward): gradients through the autograd
-   Function against ``flash_backward_plain`` on the same out and lse, causal
-   and not, S = 63 and 2048, D = 16, 64 and 128, bf16 and f32, one f32 shape
-   also against the autograd of ``reference_attention``; kernel / plain /
-   bound times at the 1B training shape and at S = 2048, D = 128, beside
-   SDPA's backward;
+   Function against ``flash_backward_plain`` on the same out and lse over
+   the same grid, one f32 shape also against the autograd of
+   ``reference_attention``; K3 / K4 kernel / plain / bound times at the 1B
+   training shape and at S = 2048, D = 128, beside SDPA's backward alone;
 5. the matmul smoke through the agent's runner with ``--kernel torch`` and
    ``--kernel cuda`` (the latter must show K1 launches);
 6. the Llama-3-8B inference smoke at full width (32 layers, dim 4096, GQA
@@ -32,9 +34,14 @@ counts at 0 just before it and read just after:
    vocab 128256; f32 parameters, bf16 compute, flash attention, AdamW):
    8 steps on one fixed batch of 4 x 1024 tokens; the loss must be finite
    and strictly decreasing, each step must launch K2, K3 and K4 once per
-   layer, and the flash path's gradient must match the einsum path's on the
-   same weights; ms/step, tokens/s, MFU and peak memory;
-8. one ``{"kernels": [...]}`` JSON line, then the ``nvidia-smi`` line;
+   layer (K2 and K4 on their sm90 kernels), the first 3 steps rerun on
+   fresh state must repeat every printed digit of the loss, and the flash
+   path's gradient must match the einsum path's on the same weights;
+   ms/step, tokens/s, MFU, peak memory and one profiled step;
+8. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+   timed shape for the variants the paths launch (the f32 K1 and the simt
+   K4 are checked in phases 3-4 but run on no path), then the ``nvidia-smi``
+   line;
 9. last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without CUDA, or run
@@ -63,6 +70,7 @@ TRANSCRIPT_LIMIT = 1e-2  # the Llama smoke's argmax margin (smoke/llama_infer.py
 # gradient limit (the Llama smoke's flash limit).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
 TRAIN_GRAD_LIMIT = 5e-2
+DETERMINISM_STEPS = 3  # rerun on fresh state; the losses must repeat
 
 
 def fail(message: str) -> None:
@@ -107,7 +115,7 @@ def check_k1(torch, peaks) -> dict:
     )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    main = None
+    timed = []
     for M, K, N, dtype in ((4096, 4096, 4096, torch.bfloat16),
                            (1024, 4096, 2048, torch.bfloat16),
                            (512, 512, 512, torch.float32)):
@@ -133,10 +141,28 @@ def check_k1(torch, peaks) -> dict:
             f"tflops={2.0 * M * N * K / ms / 1e9:.1f} {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"K1 disagrees with its plain version at {M}x{K}x{N} {dtype}")
-        if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib)
-    return main
+        if dtype == torch.bfloat16:  # the matmul smoke's kernel
+            timed.append(dict(variant="bf16", shape=[M, K, N], max_abs_err=err, ms=ms,
+                              plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    return timed
+
+
+def expected_variant(dtype, D: int) -> str:
+    """The K2/K4 kernel that inputs of this dtype and head dim must take."""
+    import torch
+
+    return "sm90" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+
+
+def ran_variant(fn, call):
+    """``call()``'s result and the variant of the one launch it made on
+    ``fn`` (a wrapper with ``launches_by_variant``)."""
+    before = dict(fn.launches_by_variant)
+    result = call()
+    ran = [v for v, n in fn.launches_by_variant.items() if n != before[v]]
+    if len(ran) != 1:
+        fail(f"{fn.__name__} made {ran} launches by variant, want exactly one")
+    return result, ran[0]
 
 
 def check_k2(torch, peaks) -> dict:
@@ -150,52 +176,55 @@ def check_k2(torch, peaks) -> dict:
         return [torch.randn((B, H, S, D), generator=gen, device="cuda", dtype=dtype)
                 for _ in range(3)]
 
-    def compare(q, k, v, causal) -> float:
+    def compare(q, k, v, causal) -> tuple[float, str]:
         """Hold K2 against its plain version on (q, k, v); fail on a
-        mismatch of O or lse. Returns O's max abs error."""
+        mismatch of O or lse, or if the wrong kernel ran. Returns O's max
+        abs error and the variant that ran."""
         B, H, S, D = q.shape
         dtype = str(q.dtype)[6:]
-        out, lse = flash_forward(q, k, v, causal)
+        (out, lse), variant = ran_variant(flash_forward, lambda: flash_forward(q, k, v, causal))
         ref, ref_lse = flash_forward_plain(q, k, v, causal)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         rel = err / float(ref.float().abs().max())
         lse_err = float((lse - ref_lse).abs().max())
         tol = K2_TOL[dtype]
-        ok = bool(torch.isfinite(out).all()) and rel <= tol and lse_err <= LSE_TOL
-        say(f"K2 B={B} H={H} S={S} D={D} causal={causal} {dtype}: O max_abs_err={err:.3e} "
-            f"rel_err={rel:.3e} (tol {tol:g}) lse max_abs_err={lse_err:.3e} "
-            f"(tol {LSE_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+        want = expected_variant(q.dtype, D)
+        ok = (bool(torch.isfinite(out).all()) and rel <= tol and lse_err <= LSE_TOL
+              and variant == want)
+        say(f"K2 [{variant}] B={B} H={H} S={S} D={D} causal={causal} {dtype}: O "
+            f"max_abs_err={err:.3e} rel_err={rel:.3e} (tol {tol:g}) lse max_abs_err="
+            f"{lse_err:.3e} (tol {LSE_TOL:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"K2 disagrees with its plain version (B={B} H={H} S={S} D={D} "
-                 f"causal={causal} {dtype})")
-        return err
+            fail(f"K2 [{variant}, want {want}] disagrees with its plain version (B={B} H={H} "
+                 f"S={S} D={D} causal={causal} {dtype})")
+        return err, variant
 
     for causal in (True, False):
-        for S in (63, 2048):
-            for D in (16, 128):
+        for S in (63, 200, 2048):
+            for D in (16, 64, 128):
                 for dtype in (torch.bfloat16, torch.float32):
                     compare(*inputs(2, 4, S, D, dtype), causal)
 
-    main = None
+    timed = []
     # The Llama-3-8B smoke's no-cache forward (oracle 3), the Llama-3.2-1B
-    # training forward, then a long sequence.
-    for B, H, S, D in ((4, 32, 63, 128), (4, 32, 1024, 64), (1, 32, 2048, 128)):
+    # training forward, a long sequence, then entry()'s tiny forward (D = 16,
+    # the simt kernel).
+    for B, H, S, D in ((4, 32, 63, 128), (4, 32, 1024, 64), (1, 32, 2048, 128), (2, 4, 16, 16)):
         q, k, v = inputs(B, H, S, D, torch.bfloat16)
-        err = compare(q, k, v, True)
+        err, variant = compare(q, k, v, True)
         ms = time_ms(lambda: flash_forward(q, k, v, True))
         plain = time_ms(lambda: flash_forward_plain(q, k, v, True), iters=5, warmup=1)
         lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
         flops = 4.0 * B * H * D * S * (S + 1) / 2  # causal: S(S+1)/2 pairs
         nbytes = 4.0 * B * H * S * D * q.element_size() + B * H * S * 4
         b_ms, b_by = bound_ms(flops, nbytes, peaks["bf16"], peaks["bw"])
-        say(f"K2 timing B={B} H={H} S={S} D={D} bf16 causal: "
+        say(f"K2 [{variant}] timing B={B} H={H} S={S} D={D} bf16 causal: "
             f"kernel_ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by})")
-        if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib)
-    return main
+            f"bound_ms={b_ms:.5f} ({b_by}) tflops={flops / ms / 1e9:.1f}")
+        timed.append(dict(variant=variant, shape=[B, H, S, D], max_abs_err=err, ms=ms,
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    return timed
 
 
 def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
@@ -209,35 +238,39 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
         return [torch.randn((B, H, S, D), generator=gen, device="cuda", dtype=dtype)
                 for _ in range(4)]
 
-    def compare(q, k, v, g, causal) -> dict:
+    def compare(q, k, v, g, causal) -> tuple[dict, str]:
         """Gradients through the autograd Function (K2, then K3 and K4)
         against flash_backward_plain on the kernel's own out and lse; fail on
-        a mismatch. Returns each gradient's max abs error."""
+        a mismatch or if the wrong K4 ran. Returns each gradient's max abs
+        error and K4's variant."""
         B, H, S, D = q.shape
         dtype = str(q.dtype)[6:]
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        grads = torch.autograd.grad(fa.flash_attention(*leaves, causal), leaves, g)
+        out = fa.flash_attention(*leaves, causal)
+        grads, variant = ran_variant(fa.flash_backward_dkv,
+                                     lambda: torch.autograd.grad(out, leaves, g))
         with torch.no_grad():
             out, lse = fa.flash_forward(q, k, v, causal)
             refs = fa.flash_backward_plain(q, k, v, out, lse, g, causal)
         torch.cuda.synchronize()
         tol = K34_TOL[dtype]
-        errs, parts, ok = {}, [], True
+        want = expected_variant(q.dtype, D)
+        errs, parts, ok = {}, [], variant == want
         for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
             err = float((got.float() - ref.float()).abs().max())
             rel = err / float(ref.float().abs().max())
             ok = ok and got.dtype == q.dtype and bool(torch.isfinite(got).all()) and rel <= tol
             errs[name] = err
             parts.append(f"{name} max_abs_err={err:.3e} rel_err={rel:.3e}")
-        say(f"K3/K4 B={B} H={H} S={S} D={D} causal={causal} {dtype}: {' '.join(parts)} "
-            f"(tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
+        say(f"K3/K4 [K4 {variant}] B={B} H={H} S={S} D={D} causal={causal} {dtype}: "
+            f"{' '.join(parts)} (tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"K3/K4 disagree with flash_backward_plain (B={B} H={H} S={S} D={D} "
-                 f"causal={causal} {dtype})")
-        return errs
+            fail(f"K3/K4 [K4 {variant}, want {want}] disagree with flash_backward_plain "
+                 f"(B={B} H={H} S={S} D={D} causal={causal} {dtype})")
+        return errs, variant
 
     for causal in (True, False):
-        for S in (63, 2048):
+        for S in (63, 200, 2048):
             for D in (16, 64, 128):
                 for dtype in (torch.bfloat16, torch.float32):
                     compare(*inputs(2, 4, S, D, dtype), causal)
@@ -253,11 +286,11 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
         fail("K3/K4 disagree with the autograd of reference_attention")
     del q, k, v, g, got, want
 
-    main3 = main4 = None
+    timed3, timed4 = [], []
     # The Llama-3.2-1B training step's attention, then a long sequence.
     for B, H, S, D in ((4, 32, 1024, 64), (1, 32, 2048, 128)):
         q, k, v, g = inputs(B, H, S, D, torch.bfloat16)
-        errs = compare(q, k, v, g, True)
+        errs, variant = compare(q, k, v, g, True)
         out, lse = fa.flash_forward(q, k, v, True)
         delta = fa.attention_delta(out, g)
         args = (q, k, v, g, lse, delta, True)
@@ -265,12 +298,11 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
         k4_ms = time_ms(lambda: fa.flash_backward_dkv(*args))
         k3_plain = time_ms(lambda: fa.flash_backward_dq_plain(*args), iters=3, warmup=1)
         k4_plain = time_ms(lambda: fa.flash_backward_dkv_plain(*args), iters=3, warmup=1)
-        # Yardstick only (the port never calls SDPA): SDPA's backward, as
-        # forward-and-backward minus forward.
+        # Yardstick only (the port never calls SDPA): SDPA's backward alone,
+        # on one graph kept for every call.
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        sdpa = lambda: F.scaled_dot_product_attention(*leaves, is_causal=True)  # noqa: E731
-        sdpa_fwd = time_ms(sdpa)
-        sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, g)) - sdpa_fwd
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
         pairs = B * H * S * (S + 1) / 2  # causal (query, key) pairs
         lse_delta_bytes = 2 * B * H * S * 4
         k3_bound = bound_ms(3 * 2.0 * D * pairs, 5.0 * B * H * S * D * q.element_size()
@@ -278,18 +310,26 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
         k4_bound = bound_ms(4 * 2.0 * D * pairs, 6.0 * B * H * S * D * q.element_size()
                             + lse_delta_bytes, peaks["bf16"], peaks["bw"])
         say(f"K3/K4 timing B={B} H={H} S={S} D={D} bf16 causal: "
-            f"K3 kernel_ms={k3_ms:.4f} plain_ms={k3_plain:.4f} bound_ms={k3_bound[0]:.5f} "
-            f"({k3_bound[1]}); K4 kernel_ms={k4_ms:.4f} plain_ms={k4_plain:.4f} "
-            f"bound_ms={k4_bound[0]:.5f} ({k4_bound[1]}); "
-            f"sdpa_backward_ms={sdpa_bwd:.4f} (dq, dk, dv together; sdpa forward {sdpa_fwd:.4f})")
-        if main3 is None:
-            common = dict(library_ms=sdpa_bwd, library_call="SDPA backward (dq, dk, dv)")
-            main3 = dict(max_abs_err=errs["dq"], ms=k3_ms, plain_ms=k3_plain,
-                         bound_ms=k3_bound[0], bound_by=k3_bound[1], **common)
-            main4 = dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=k4_ms, plain_ms=k4_plain,
-                         bound_ms=k4_bound[0], bound_by=k4_bound[1], **common)
-        del q, k, v, g, out, lse, delta, leaves
-    return main3, main4
+            f"K3 [simt] kernel_ms={k3_ms:.4f} plain_ms={k3_plain:.4f} "
+            f"bound_ms={k3_bound[0]:.5f} ({k3_bound[1]}) tflops="
+            f"{3 * 2.0 * D * pairs / k3_ms / 1e9:.1f}; K4 [{variant}] kernel_ms={k4_ms:.4f} "
+            f"plain_ms={k4_plain:.4f} bound_ms={k4_bound[0]:.5f} ({k4_bound[1]}) tflops="
+            f"{4 * 2.0 * D * pairs / k4_ms / 1e9:.1f}; K3+K4 {k3_ms + k4_ms:.4f} ms against "
+            f"sdpa_backward_ms={sdpa_bwd:.4f} (dq, dk, dv together, backward alone)")
+        common = dict(shape=[B, H, S, D], library_ms=sdpa_bwd,
+                      library_call="SDPA backward (dq, dk, dv)")
+        timed3.append(dict(variant="simt", max_abs_err=errs["dq"], ms=k3_ms, plain_ms=k3_plain,
+                           bound_ms=k3_bound[0], bound_by=k3_bound[1], **common))
+        timed4.append(dict(variant=variant, max_abs_err=max(errs["dk"], errs["dv"]), ms=k4_ms,
+                           plain_ms=k4_plain, bound_ms=k4_bound[0], bound_by=k4_bound[1],
+                           **common))
+        del q, k, v, g, out, lse, delta, leaves, sdpa_out
+    return timed3, timed4
+
+
+def flat_variants(by_variant: dict) -> dict:
+    """``ops.variant_launch_counts()`` as flat ``"K2/sm90"``-style keys."""
+    return {f"{k}/{v}": n for k, counts in by_variant.items() for v, n in counts.items()}
 
 
 def grad_rel_err(got: dict, want: dict, names) -> float:
@@ -301,9 +341,9 @@ def grad_rel_err(got: dict, want: dict, names) -> float:
 
 # Device-time groups of a training step, by kernel name (first match wins).
 KERNEL_GROUPS = (
-    ("K2 flash forward", ("flash_fwd_kernel",)),
+    ("K2 flash forward", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("K3 flash dQ", ("flash_bwd_dq_kernel",)),
-    ("K4 flash dK/dV", ("flash_bwd_dkv_kernel",)),
+    ("K4 flash dK/dV", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sgemm")),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("softmax", ("softmax",)),
@@ -367,21 +407,41 @@ def train_llama_1b(torch, peaks) -> dict:
         np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
     ).to("cuda")
     torch.cuda.reset_peak_memory_stats()
-    state = make_llama_train_state(cfg, device="cuda", seed=0)
-    step = make_llama_train_step(cfg)
-    losses, seconds = [], []
+
+    def run(steps: int):
+        """``steps`` steps from a fresh state (seed 0): losses, seconds,
+        the state and the step function."""
+        state = make_llama_train_state(cfg, device="cuda", seed=0)
+        step = make_llama_train_step(cfg)
+        losses, seconds = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, loss = step(state, tokens)
+            losses.append(float(loss))  # waits for the step
+            seconds.append(time.perf_counter() - t0)
+        return losses, seconds, state, step
+
     ops.reset_launch_counts()
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, loss = step(state, tokens)
-        losses.append(float(loss))  # waits for the step
-        seconds.append(time.perf_counter() - t0)
-    launches = ops.launch_counts()
+    losses, seconds, state, step = run(TRAIN_STEPS)
+    launches = {**ops.launch_counts(), **flat_variants(ops.variant_launch_counts())}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile_step(torch, step, state, tokens)
-    del state, step, loss
+    del state, step
     gc.collect()
     torch.cuda.empty_cache()
+
+    # Determinism: no atomics anywhere on the path, so the first steps on a
+    # fresh state repeat every printed digit.
+    printed = [round(x, 6) for x in losses[:DETERMINISM_STEPS]]
+    again, _, state, step = run(DETERMINISM_STEPS)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = [round(x, 6) for x in again]
+    say(f"train determinism: steps 1-{DETERMINISM_STEPS} losses {printed}, on fresh state "
+        f"again {again}: {'identical' if again == printed else 'DIFFERENT'}")
+    if again != printed:
+        fail(f"1B training losses differ between two runs: {printed} vs {again}")
 
     ms = 1e3 * statistics.median(seconds[1:])  # the first step pays for lazy init
     n_tok = TRAIN_BATCH * TRAIN_SEQ
@@ -401,9 +461,12 @@ def train_llama_1b(torch, peaks) -> dict:
         f"max_memory_allocated_gb={peak_gb:.2f} launches={launches}")
     if not all(np.isfinite(losses)) or any(b >= a for a, b in zip(losses, losses[1:])):
         fail(f"1B training loss is not finite and strictly decreasing: {losses}")
-    want = {"K1": 0, "K2": L * TRAIN_STEPS, "K3": L * TRAIN_STEPS, "K4": L * TRAIN_STEPS}
+    n = L * TRAIN_STEPS
+    want = {"K1": 0, "K2": n, "K3": n, "K4": n,
+            "K2/sm90": n, "K2/simt": 0, "K4/sm90": n, "K4/simt": 0}
     if launches != want:
-        fail(f"1B training launched {launches}, want {want} ({L} per step each of K2/K3/K4)")
+        fail(f"1B training launched {launches}, want {want} ({L} per step each of K2/K3/K4, "
+             f"K2 and K4 on their sm90 kernels)")
 
     def grads(use_flash: bool) -> dict:
         model = LlamaModel(dataclasses.replace(cfg, use_flash=use_flash), device="cuda", seed=0)
@@ -505,7 +568,8 @@ def main(argv: list[str] | None = None) -> int:
         if res["backend"] != "cuda":
             fail(f"matmul smoke ran on {res['backend']}, not the card")
         if kernel == "cuda":
-            paths["matmul smoke"] = res["kernel_launches"]
+            paths["matmul smoke"] = {**res["kernel_launches"], **flat_variants(
+                {k: dict.fromkeys(("sm90", "simt"), 0) for k in ("K2", "K4")})}
             if res["kernel_launches"]["K1"] <= 0:
                 fail("matmul smoke --kernel cuda launched K1 no time")
 
@@ -525,9 +589,13 @@ def main(argv: list[str] | None = None) -> int:
     if not (res["ok"] and res["oracle_ok"] and res["transcript_ok"]
             and rel is not None and rel < 5e-2):
         fail(f"llama smoke oracles failed: {res}")
-    paths["llama smoke"] = res["kernel_launches"]
-    if res["kernel_launches"]["K2"] <= 0:
-        fail("llama smoke launched K2 no time")
+    paths["llama smoke"] = {**res["kernel_launches"],
+                            **flat_variants(res["kernel_launches_by_variant"])}
+    smoke_k2 = paths["llama smoke"]
+    say(f"llama smoke K2 launches by variant: sm90={smoke_k2['K2/sm90']} "
+        f"simt={smoke_k2['K2/simt']}")
+    if smoke_k2["K2"] <= 0 or smoke_k2["K2/sm90"] != smoke_k2["K2"]:
+        fail("the llama smoke's K2 launches did not all go to the sm90 kernel")
 
     # The same smoke with every cached-decode position shifted by one (the
     # off-by-one the transcript oracle exists for) must fail at full width.
@@ -549,14 +617,14 @@ def main(argv: list[str] | None = None) -> int:
     ops.reset_launch_counts()
     logits = forward(*example)
     torch.cuda.synchronize()
-    paths["entry"] = ops.launch_counts()
+    paths["entry"] = {**ops.launch_counts(), **flat_variants(ops.variant_launch_counts())}
     entry_k2 = paths["entry"]["K2"]
     say(f"entry(): logits {tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())} "
-        f"K2 launches={entry_k2}")
+        f"K2 launches={entry_k2} (simt {paths['entry']['K2/simt']}, head dim 16)")
     if tuple(logits.shape) != (2, 16, 256) or not bool(torch.isfinite(logits).all()):
         fail("entry() forward gave a wrong shape or non-finite logits")
-    if entry_k2 <= 0:
-        fail("entry() forward launched K2 no time")
+    if entry_k2 <= 0 or paths["entry"]["K2/simt"] != entry_k2:
+        fail("entry() forward did not launch K2, or not on its simt kernel")
     del logits, forward, example
     torch.cuda.empty_cache()
 
@@ -564,21 +632,27 @@ def main(argv: list[str] | None = None) -> int:
     paths["1b training"] = train_llama_1b(torch, peaks)["launches"]
 
     # --- 8. kernel summary ------------------------------------------------------
-    def counted(name: str) -> dict:
-        by_path = {path: c[name] for path, c in paths.items() if c[name]}
+    def counted(key: str) -> dict:
+        by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     attention = "tpu_cc_manager_torch/csrc/flash_attention.cu"
+    # (name, source, TPU kernel, launch-count key, timed shapes); K1 and K3
+    # have one kernel on the paths, K2 and K4 count theirs by variant.
+    table = [
+        ("K1 tiled_matmul", "tpu_cc_manager_torch/csrc/matmul.cu",
+         "tpu_cc_manager/ops/matmul.py:55", lambda t: "K1", k1),
+        ("K2 flash_forward", attention, "tpu_cc_manager/ops/flash_attention.py:64",
+         lambda t: f"K2/{t['variant']}", k2),
+        ("K3 flash_backward_dq", attention, "tpu_cc_manager/ops/flash_attention.py:179",
+         lambda t: "K3", k3),
+        ("K4 flash_backward_dkv", attention, "tpu_cc_manager/ops/flash_attention.py:231",
+         lambda t: f"K4/{t['variant']}", k4),
+    ]
     kernels = [
-        {"name": "K1 tiled_matmul", "route": "cuda",
-         "source": "tpu_cc_manager_torch/csrc/matmul.cu",
-         "replaces": "tpu_cc_manager/ops/matmul.py:55", **counted("K1"), **k1},
-        {"name": "K2 flash_forward", "route": "cuda", "source": attention,
-         "replaces": "tpu_cc_manager/ops/flash_attention.py:64", **counted("K2"), **k2},
-        {"name": "K3 flash_backward_dq", "route": "cuda", "source": attention,
-         "replaces": "tpu_cc_manager/ops/flash_attention.py:179", **counted("K3"), **k3},
-        {"name": "K4 flash_backward_dkv", "route": "cuda", "source": attention,
-         "replaces": "tpu_cc_manager/ops/flash_attention.py:231", **counted("K4"), **k4},
+        {"name": f"{name} [{t['variant']}] {tuple(t['shape'])}", "route": "cuda",
+         "source": source, "replaces": replaces, **counted(key(t)), **t}
+        for name, source, replaces, key, timed in table for t in timed
     ]
     for kernel in kernels:
         if kernel["launches"] <= 0:

@@ -181,6 +181,27 @@ class TestBuild:
             assert path.name.startswith(f"{name}-") and path.suffix == ".so"
             assert (_build.CSRC / f"{name}.cu").exists()
 
+    def test_library_key_covers_headers(self, monkeypatch, tmp_path):
+        """Editing a shared header under csrc/ changes every library's path,
+        so the next load rebuilds instead of loading a stale library."""
+        import shutil
+
+        from tpu_cc_manager_torch.ops import _build
+
+        csrc = tmp_path / "csrc"
+        shutil.copytree(_build.CSRC, csrc)
+        monkeypatch.setattr(_build, "CSRC", csrc)
+        before = {name: _build.library_path(name) for name in _build.SIGNATURES}
+        assert before["flash_attention"] == _build.library_path("flash_attention")
+        header = csrc / "sm90.cuh"
+        assert '#include "sm90.cuh"' in (csrc / "flash_attention.cu").read_text()
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {name: _build.library_path(name) for name in _build.SIGNATURES}
+        assert all(after[name] != before[name] for name in before)
+        (csrc / "flash_attention.cu").write_text(
+            (csrc / "flash_attention.cu").read_text() + "\n// edited\n")
+        assert _build.library_path("flash_attention") != after["flash_attention"]
+
     def test_check_raises_on_a_cuda_error(self):
         from tpu_cc_manager_torch.ops import _build
 

@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a): K2 forward (online softmax), K3 dQ and
-// K4 dK/dV (backward by block recomputation).
+// K4 dK/dV (backward by block recomputation); K2 and K4 each in two variants.
 //
 // K2 replaces tpu_cc_manager/ops/flash_attention.py::_fwd_kernel
 // (pl.pallas_call in _flash_forward). Same contract: q, k, v are (B*H, S, D)
@@ -22,8 +22,8 @@
 // 4*B*H*S^2*D operations dominate the 4*B*H*S*D*2 bytes, so the tensor cores
 // would be the limit. This first version computes QK^T and PV in f32 on the
 // CUDA cores (67 TFLOP/s peak, not 989), with all tiles staged in shared
-// memory in f32 and rows padded by one float to avoid bank conflicts. Moving
-// the two products onto wgmma is later work.
+// memory in f32 and rows padded by one float to avoid bank conflicts. The
+// sm90 variant below moves the two products onto wgmma.
 //
 // K3 replaces _bwd_dq_kernel and K4 replaces _bwd_dkv_kernel (both launched
 // by pl.pallas_call in _flash_backward). Their inputs are q, k, v, dO in the
@@ -53,10 +53,35 @@
 // at about 300 operations per byte the tensor cores would be the limit. Like
 // K2 these first versions run every product in f32 on the CUDA cores from
 // tiles staged in shared memory, so they are operation-bound far above the
-// tensor-core bound. Moving them onto wgmma is later work.
+// tensor-core bound. K4's sm90 variant below moves its products onto wgmma;
+// K3's is later work.
 //
 // D may be any multiple of 8 up to 128 (the wrappers check). Shared memory
 // exceeds 48 KB at D=128, so each entry raises its kernel's dynamic limit.
+//
+// The Hopper variants ("sm90": flash_fwd_sm90_kernel for K2,
+// flash_bwd_dkv_sm90_kernel for K4) take bf16 at D = 64 or 128, the Llama-3
+// heads; the wrapper picks them from (dtype, D) before the launch, and the
+// kernels above keep f32 and every other D. What bounds attention at the
+// training shape is the tensor cores (about 300 operations per byte), and
+// the kernels above reach them not at all: their products are f32 FMAs on
+// the CUDA cores, two shared-memory loads each. The sm90 kernels run every
+// product as wgmma from shared-memory tiles that TMA loads (helpers and the
+// layout contract in sm90.cuh), with a producer warp keeping a two-stage
+// ring full while consumer warpgroups of 64 rows compute:
+// - K2: blocks of 128 queries (two consumer warpgroups), 128-key K/V tiles;
+//   S = Q K^T (SS), the online softmax in registers in the log2 domain
+//   (lse = (m2 + log2 l) * ln 2 on the way out, l summed from the f32 P),
+//   then O += P V with P rounded to bf16 in registers as the A operand (RS):
+//   the one numerical change from the kernels above, and the rounding that
+//   reference_attention and the einsum Llama path make too. Masks run only
+//   on the diagonal and ragged tail tiles.
+// - K4: blocks of 64 keys per consumer warpgroup (two at D = 64, one at
+//   D = 128, so that two f32 64 x D accumulators fit in registers without
+//   spills), K and V resident, 64-query Q/dO tiles streamed with lse and
+//   delta from the causal start (kb * BKV) / 64; S^T and dP^T (SS), P^T and
+//   dS^T on the accumulators, dV += P^T dO and dK += dS^T Q (RS) with P^T and
+//   dS^T rounded to bf16. One summation order, no atomics.
 //
 // Plain C interface, loaded with ctypes. Every entry returns cudaGetLastError()
 // right after the launch.
@@ -65,6 +90,9 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -462,6 +490,457 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// The Hopper variants of K2 and K4 (bf16, D = 64 or 128): wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_BQ = 128;         // queries per block
+constexpr int FWD_CONSUMERS = 2;    // warpgroups of 64 query rows each
+constexpr int FWD_THREADS = FWD_CONSUMERS * 128 + 32;  // and one producer warp
+constexpr int FWD_STAGES = 2;       // K/V ring depth
+
+template <int D, int BKV>
+struct FwdSmem {
+  static constexpr uint32_t Q_BOX = FWD_BQ * sm90::ROW_BYTES;  // one 64-column box of Q
+  static constexpr uint32_t KV_BOX = BKV * sm90::ROW_BYTES;
+  static constexpr uint32_t Q_BYTES = (D / 64) * Q_BOX;
+  static constexpr uint32_t KV_BYTES = (D / 64) * KV_BOX;      // one K (or V) tile
+  static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;        // K then V
+  // + 1024 so that the tiles can start on a 1024-byte boundary
+  static constexpr uint32_t BYTES = Q_BYTES + FWD_STAGES * STAGE_BYTES + sm90::GROUP_BYTES;
+};
+
+// K2, Hopper variant: one block per (b*h, 128-query tile), the longest causal
+// walks first. A producer warp loads the Q tile once and streams K/V tiles of
+// BKV keys through a two-stage TMA ring; each consumer warpgroup owns 64 query
+// rows, runs S = Q K^T as one SS wgmma chain, the online softmax on the f32
+// accumulator (exp2 of log2e-scaled scores, row max and sum over the quad of
+// threads that share a row), and O += P V with P rounded to bf16 in registers
+// as the A operand (RS) and V as the MN-major B operand.
+template <int D, int BKV>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+                          float scale_log2, int causal) {
+  using L = FwdSmem<D, BKV>;
+  constexpr int NB = D / 64;
+  extern __shared__ uint8_t fwd90_smem[];
+  __shared__ uint64_t q_full, kv_full[FWD_STAGES], kv_empty[FWD_STAGES];
+  uint8_t* q_s = sm90::align1024(fwd90_smem);
+  uint8_t* ring = q_s + L::Q_BYTES;  // stage s: K at s * STAGE_BYTES, V after it
+
+  const int bh = blockIdx.x;
+  const int qi = gridDim.y - 1 - blockIdx.y;
+  const int num_k_tiles = (S + BKV - 1) / BKV;
+  const int k_hi = causal ? min(((qi + 1) * FWD_BQ - 1) / BKV + 1, num_k_tiles) : num_k_tiles;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&q_full, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], FWD_CONSUMERS * 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == FWD_CONSUMERS * 4) {  // the producer
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&q_full, L::Q_BYTES);
+      for (int b = 0; b < NB; ++b)
+        sm90::tma_load_3d(q_s + b * L::Q_BOX, &tm_q, &q_full, b * 64, qi * FWD_BQ, bh);
+      for (int i = 0; i < k_hi; ++i) {
+        const int s = i % FWD_STAGES;
+        sm90::mbar_wait(&kv_empty[s], ((i / FWD_STAGES) & 1) ^ 1);
+        uint8_t* k_s = ring + s * L::STAGE_BYTES;
+        uint8_t* v_s = k_s + L::KV_BYTES;
+        sm90::mbar_arrive_expect_tx(&kv_full[s], L::STAGE_BYTES);
+        for (int b = 0; b < NB; ++b) {
+          sm90::tma_load_3d(k_s + b * L::KV_BOX, &tm_k, &kv_full[s], b * 64, i * BKV, bh);
+          sm90::tma_load_3d(v_s + b * L::KV_BOX, &tm_v, &kv_full[s], b * 64, i * BKV, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int quad = lane % 4;
+  const int r0 = 16 * (warp % 4) + lane / 4;  // this thread's rows: r0 and r0 + 8
+  const int q_first = qi * FWD_BQ + wg * 64;       // the warpgroup's first query
+  const int q0 = q_first + r0;
+  const int q1 = q0 + 8;
+  const uint32_t q_addr = sm90::smem_u32(q_s) + wg * 64 * sm90::ROW_BYTES;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m0 = NEG_INF, m1 = NEG_INF;  // running max, log2 domain
+  float l0 = 0.0f, l1 = 0.0f;        // this thread's share of the running sum
+
+  sm90::mbar_wait(&q_full, 0);
+  for (int i = 0; i < k_hi; ++i) {
+    const int s = i % FWD_STAGES;
+    sm90::mbar_wait(&kv_full[s], (i / FWD_STAGES) & 1);
+    const uint32_t k_addr = sm90::smem_u32(ring + s * L::STAGE_BYTES);
+    const uint32_t v_addr = k_addr + L::KV_BYTES;
+
+    float sc[BKV / 2];
+#pragma unroll
+    for (int j = 0; j < BKV / 2; ++j) sc[j] = 0.0f;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      sm90::wgmma_ss(sc, sm90::desc_kmajor(q_addr, L::Q_BOX, ks),
+                     sm90::desc_kmajor(k_addr, L::KV_BOX, ks), ks > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(sc);
+
+    // Masks only where a key can be invalid: the ragged tail tile and the
+    // tiles that reach past this warpgroup's first query.
+    const bool masked = (i + 1) * BKV > S || (causal && (i + 1) * BKV - 1 > q_first);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float x0 = sc[4 * j + c] * scale_log2;
+        float x1 = sc[4 * j + 2 + c] * scale_log2;
+        if (masked) {
+          const int key = i * BKV + 8 * j + 2 * quad + c;
+          if (key >= S || (causal && key > q0)) x0 = NEG_INF;
+          if (key >= S || (causal && key > q1)) x1 = NEG_INF;
+        }
+        sc[4 * j + c] = x0;
+        sc[4 * j + 2 + c] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f(m0 - mn0);
+    const float alpha1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // P in f32 for the sum, rounded to bf16 for the product.
+    uint32_t pf[BKV / 16][4];
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        p[e] = exp2f(sc[8 * kk + e] - ((e & 2) ? mn1 : mn0));
+        if (e & 2)
+          sum1 += p[e];
+        else
+          sum0 += p[e];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pf[kk][r] = sm90::pack_bf16(p[2 * r], p[2 * r + 1]);
+    }
+    l0 = alpha0 * l0 + sum0;
+    l1 = alpha1 * l1 + sum1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha0;
+      acc[4 * j + 1] *= alpha0;
+      acc[4 * j + 2] *= alpha1;
+      acc[4 * j + 3] *= alpha1;
+    }
+
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      sm90::wgmma_rs(acc, pf[kk], sm90::desc_mnmajor(v_addr, L::KV_BOX, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(pf);
+    sm90::mbar_arrive(&kv_empty[s]);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float ls0 = fmaxf(l0, 1e-30f);
+  const float ls1 = fmaxf(l1, 1e-30f);
+  const size_t row0 = static_cast<size_t>(bh) * S + q0;
+  const size_t row1 = row0 + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * quad;
+    if (q0 < S)
+      *reinterpret_cast<uint32_t*>(o + row0 * D + col) =
+          sm90::pack_bf16(acc[4 * j] / ls0, acc[4 * j + 1] / ls0);
+    if (q1 < S)
+      *reinterpret_cast<uint32_t*>(o + row1 * D + col) =
+          sm90::pack_bf16(acc[4 * j + 2] / ls1, acc[4 * j + 3] / ls1);
+  }
+  if (quad == 0) {
+    if (q0 < S) lse[row0] = (m0 + log2f(ls0)) * sm90::LN2;
+    if (q1 < S) lse[row1] = (m1 + log2f(ls1)) * sm90::LN2;
+  }
+}
+
+constexpr int BWD_BQ = 64;      // queries per streamed tile
+constexpr int BWD_STAGES = 2;   // Q/dO ring depth
+
+template <int D, int NWG>
+struct BwdSmem {
+  static constexpr int BKV = 64 * NWG;                        // keys per block
+  static constexpr uint32_t KV_BOX = BKV * sm90::ROW_BYTES;
+  static constexpr uint32_t KV_BYTES = (D / 64) * KV_BOX;      // K (or V), resident
+  static constexpr uint32_t Q_BOX = BWD_BQ * sm90::ROW_BYTES;
+  static constexpr uint32_t Q_BYTES = (D / 64) * Q_BOX;        // one Q (or dO) tile
+  static constexpr uint32_t STAGE_BYTES = 2 * Q_BYTES;         // Q then dO
+  static constexpr uint32_t TILE_BYTES = 2 * KV_BYTES + BWD_STAGES * STAGE_BYTES;
+  // lse * log2e and delta of each stage's queries, then alignment slack
+  static constexpr uint32_t BYTES = TILE_BYTES + BWD_STAGES * 2 * BWD_BQ * 4 + sm90::GROUP_BYTES;
+};
+
+// K4, Hopper variant: one block per (b*h, 64 * NWG keys), the longest causal
+// walks first; K and V stay in shared memory (one TMA load), and a producer
+// warp streams Q/dO tiles of 64 queries, with their lse and delta, through a
+// two-stage ring from the causal start (kb * BKV) / 64. Each consumer
+// warpgroup owns 64 keys: S^T = K Q^T and dP^T = V dO^T as SS wgmma chains,
+// P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T - delta) * scale on the
+// f32 accumulators, then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+// rounded to bf16 in registers (RS) and dO, Q as MN-major B operands. dK and
+// dV stay in f32 registers across the walk; no atomics.
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+    flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                              int S, float scale, int causal) {
+  using L = BwdSmem<D, NWG>;
+  constexpr int NB = D / 64;
+  constexpr int BKV = L::BKV;
+  extern __shared__ uint8_t bwd90_smem[];
+  __shared__ uint64_t kv_full, full[BWD_STAGES], empty[BWD_STAGES];
+  uint8_t* k_s = sm90::align1024(bwd90_smem);
+  uint8_t* v_s = k_s + L::KV_BYTES;
+  uint8_t* ring = k_s + 2 * L::KV_BYTES;  // stage s: Q at s * STAGE_BYTES, dO after it
+  float* vec = reinterpret_cast<float*>(k_s + L::TILE_BYTES);  // stage s: lse2[64], delta[64]
+
+  const int bh = blockIdx.x;
+  const int kb = blockIdx.y;
+  const int num_q_tiles = (S + BWD_BQ - 1) / BWD_BQ;
+  const int q_start = causal ? (kb * BKV) / BWD_BQ : 0;
+  const int n = num_q_tiles - q_start;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&kv_full, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 32);
+      sm90::mbar_init(&empty[s], NWG * 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {  // the producer warp
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&kv_full, 2 * L::KV_BYTES);
+      for (int b = 0; b < NB; ++b) {
+        sm90::tma_load_3d(k_s + b * L::KV_BOX, &tm_k, &kv_full, b * 64, kb * BKV, bh);
+        sm90::tma_load_3d(v_s + b * L::KV_BOX, &tm_v, &kv_full, b * 64, kb * BKV, bh);
+      }
+    }
+    for (int i = 0; i < n; ++i) {
+      const int s = i % BWD_STAGES;
+      const int qb = q_start + i;
+      sm90::mbar_wait(&empty[s], ((i / BWD_STAGES) & 1) ^ 1);
+      float* lse2_s = vec + s * 2 * BWD_BQ;
+      float* delta_s = lse2_s + BWD_BQ;
+      for (int t = lane; t < BWD_BQ; t += 32) {
+        const int q = qb * BWD_BQ + t;
+        const bool in = q < S;
+        const size_t off = static_cast<size_t>(bh) * S + q;
+        lse2_s[t] = in ? lse[off] * sm90::LOG2E : 0.0f;
+        delta_s[t] = in ? delta[off] : 0.0f;
+      }
+      // Each lane's arrival releases its own lse/delta stores.
+      if (lane == 0) {
+        uint8_t* q_t = ring + s * L::STAGE_BYTES;
+        uint8_t* do_t = q_t + L::Q_BYTES;
+        sm90::mbar_arrive_expect_tx(&full[s], L::STAGE_BYTES);
+        for (int b = 0; b < NB; ++b) {
+          sm90::tma_load_3d(q_t + b * L::Q_BOX, &tm_q, &full[s], b * 64, qb * BWD_BQ, bh);
+          sm90::tma_load_3d(do_t + b * L::Q_BOX, &tm_do, &full[s], b * 64, qb * BWD_BQ, bh);
+        }
+      } else {
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int quad = lane % 4;
+  const int r0 = 16 * (warp % 4) + lane / 4;  // this thread's key rows: r0 and r0 + 8
+  const int k_first = kb * BKV + wg * 64;
+  const int k0 = k_first + r0;
+  const int k1 = k0 + 8;
+  const uint32_t k_addr = sm90::smem_u32(k_s) + wg * 64 * sm90::ROW_BYTES;
+  const uint32_t v_addr = sm90::smem_u32(v_s) + wg * 64 * sm90::ROW_BYTES;
+  const float scale_log2 = scale * sm90::LOG2E;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  sm90::mbar_wait(&kv_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % BWD_STAGES;
+    const int qb = q_start + i;
+    sm90::mbar_wait(&full[s], (i / BWD_STAGES) & 1);
+    const uint32_t q_addr = sm90::smem_u32(ring + s * L::STAGE_BYTES);
+    const uint32_t do_addr = q_addr + L::Q_BYTES;
+    const float* lse2_s = vec + s * 2 * BWD_BQ;
+    const float* delta_s = lse2_s + BWD_BQ;
+
+    float st[BWD_BQ / 2], dpt[BWD_BQ / 2];  // S^T and dP^T: keys x queries
+#pragma unroll
+    for (int j = 0; j < BWD_BQ / 2; ++j) st[j] = dpt[j] = 0.0f;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      sm90::wgmma_ss(st, sm90::desc_kmajor(k_addr, L::KV_BOX, ks),
+                     sm90::desc_kmajor(q_addr, L::Q_BOX, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      sm90::wgmma_ss(dpt, sm90::desc_kmajor(v_addr, L::KV_BOX, ks),
+                     sm90::desc_kmajor(do_addr, L::Q_BOX, ks), ks > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+
+    // Masks only on the ragged tail tile and on tiles whose first query
+    // precedes one of this warpgroup's keys.
+    const bool masked = (qb + 1) * BWD_BQ > S || (causal && qb * BWD_BQ < k_first + 63);
+    uint32_t pf[BWD_BQ / 16][4], dsf[BWD_BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BWD_BQ / 16; ++kk) {
+      float p[8], ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int col = 16 * kk + ((e & 4) ? 8 : 0) + 2 * quad + (e & 1);
+        float x = st[8 * kk + e] * scale_log2 - lse2_s[col];
+        if (masked) {
+          const int q = qb * BWD_BQ + col;
+          if (q >= S || (causal && ((e & 2) ? k1 : k0) > q)) x = NEG_INF;
+        }
+        p[e] = exp2f(x);
+        ds[e] = p[e] * (dpt[8 * kk + e] - delta_s[col]) * scale;
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pf[kk][r] = sm90::pack_bf16(p[2 * r], p[2 * r + 1]);
+        dsf[kk][r] = sm90::pack_bf16(ds[2 * r], ds[2 * r + 1]);
+      }
+    }
+
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BWD_BQ / 16; ++kk)
+      sm90::wgmma_rs(dv_acc, pf[kk], sm90::desc_mnmajor(do_addr, L::Q_BOX, kk));
+#pragma unroll
+    for (int kk = 0; kk < BWD_BQ / 16; ++kk)
+      sm90::wgmma_rs(dk_acc, dsf[kk], sm90::desc_mnmajor(q_addr, L::Q_BOX, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(dv_acc);
+    sm90::fence_regs(dk_acc);
+    sm90::fence_regs(pf);
+    sm90::fence_regs(dsf);
+    sm90::mbar_arrive(&empty[s]);
+  }
+
+  const size_t row0 = static_cast<size_t>(bh) * S + k0;
+  const size_t row1 = row0 + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * quad;
+    if (k0 < S) {
+      *reinterpret_cast<uint32_t*>(dk + row0 * D + col) =
+          sm90::pack_bf16(dk_acc[4 * j], dk_acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dv + row0 * D + col) =
+          sm90::pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
+    }
+    if (k1 < S) {
+      *reinterpret_cast<uint32_t*>(dk + row1 * D + col) =
+          sm90::pack_bf16(dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dv + row1 * D + col) =
+          sm90::pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+    }
+  }
+}
+
+template <int D, int BKV>
+int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                    int S, float scale, int causal, void* stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = sm90::make_map(&tq, q, BH, S, D, FWD_BQ);
+  if (err == cudaSuccess) err = sm90::make_map(&tk, k, BH, S, D, BKV);
+  if (err == cudaSuccess) err = sm90::make_map(&tv, v, BH, S, D, BKV);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = FwdSmem<D, BKV>::BYTES;
+  err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, BKV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(BH, (S + FWD_BQ - 1) / FWD_BQ);
+  flash_fwd_sm90_kernel<D, BKV>
+      <<<grid, FWD_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, scale * sm90::LOG2E, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int NWG>
+int launch_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, void* dk, void* dv, int BH, int S,
+                        float scale, int causal, void* stream) {
+  using L = BwdSmem<D, NWG>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::make_map(&tq, q, BH, S, D, BWD_BQ);
+  if (err == cudaSuccess) err = sm90::make_map(&tdo, dout, BH, S, D, BWD_BQ);
+  if (err == cudaSuccess) err = sm90::make_map(&tk, k, BH, S, D, L::BKV);
+  if (err == cudaSuccess) err = sm90::make_map(&tv, v, BH, S, D, L::BKV);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_sm90_kernel<D, NWG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L::BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(BH, (S + L::BKV - 1) / L::BKV);
+  flash_bwd_dkv_sm90_kernel<D, NWG>
+      <<<grid, NWG * 128 + 32, L::BYTES, static_cast<cudaStream_t>(stream)>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -501,6 +980,31 @@ int tcc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
                                          causal, stream);
   return launch_bwd_dkv<float>(q, k, v, dout, l, dl, dk, dv, BH, S, D, scale, causal,
                                stream);
+}
+
+// K2, Hopper variant. q, k, v, o: contiguous bf16 (BH, S, D) with 16-byte
+// aligned bases; lse: contiguous f32 (BH, S, 1). D must be 64 or 128.
+int tcc_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                       int S, int D, float scale, int causal, void* stream) {
+  float* l = static_cast<float*>(lse);
+  if (D == 64) return launch_fwd_sm90<64, 128>(q, k, v, o, l, BH, S, scale, causal, stream);
+  if (D == 128) return launch_fwd_sm90<128, 128>(q, k, v, o, l, BH, S, scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K4, Hopper variant. As tcc_flash_bwd_dkv for bf16, with the guarantees of
+// tcc_flash_fwd_sm90 on q, k, v and dout.
+int tcc_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk, void* dv, int BH, int S,
+                           int D, float scale, int causal, void* stream) {
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (D == 64)
+    return launch_bwd_dkv_sm90<64, 2>(q, k, v, dout, l, dl, dk, dv, BH, S, scale, causal, stream);
+  if (D == 128)
+    return launch_bwd_dkv_sm90<128, 1>(q, k, v, dout, l, dl, dk, dv, BH, S, scale, causal,
+                                       stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

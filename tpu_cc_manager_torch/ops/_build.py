@@ -8,11 +8,12 @@ shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
 
-keyed by a hash of the source, and is loaded with ``ctypes``. Pointers and
-the stream cross as ``c_void_p``; each C entry returns ``cudaGetLastError()``
-and :func:`check` raises when it is not 0. Building uses the repository's
-sources only. Nothing happens at import: the first :func:`load` (or an
-explicit :func:`build`) compiles, so CPU-only hosts never need ``nvcc``.
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, and is loaded with ``ctypes``. Pointers and the stream cross as
+``c_void_p``; each C entry returns ``cudaGetLastError()`` and :func:`check`
+raises when it is not 0. Building uses the repository's sources only.
+Nothing happens at import: the first :func:`load` (or an explicit
+:func:`build`) compiles, so CPU-only hosts never need ``nvcc``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "tcc_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
         "tcc_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
         "tcc_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+        "tcc_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+        "tcc_flash_bwd_dkv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
 }
 
@@ -76,8 +79,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by the source and flags."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every shared
+    header under ``csrc/`` (a header edit rebuilds) and the flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -15,10 +15,22 @@ Each wrapper launches ``csrc/flash_attention.cu`` for CUDA tensors and runs
 its plain version (the TPU kernel's blocked algorithm in plain PyTorch) for
 CPU tensors; a CUDA input either launches the kernel or raises.
 
+K2 and K4 each have two hand-written kernels, and :func:`_variant` picks one
+from the inputs' dtype and head dim alone, before the launch (never on a
+failure):
+
+- ``"sm90"`` for bf16 at D = 64 or 128 (the Llama-3 family's heads): wgmma
+  products fed by TMA (``csrc/sm90.cuh``). It rounds P (and K4's dS) to bf16
+  before the products that take them, as ``reference_attention`` and the
+  einsum Llama path round P before PV; the plain versions do the same for
+  these inputs;
+- ``"simt"`` for f32 and every other D: the first kernels, with every
+  product in f32 on the CUDA cores (K3 has only this one).
+
 ``block_q``/``block_k`` tile the plain versions as they tile the Pallas
 kernels (rounded up to a multiple of 8 and clamped, :func:`_block_for`). The
-CUDA kernels are compiled for 32-query x 32-key tiles; the result differs
-only in f32 summation order.
+CUDA kernels use their own tiles; the results differ only in f32 summation
+order (and, for ``"sm90"``, in where P's bf16 rounding falls).
 """
 
 from __future__ import annotations
@@ -29,6 +41,20 @@ from tpu_cc_manager_torch.ops import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+SM90_HEAD_DIMS = (64, 128)
+VARIANTS = ("sm90", "simt")
+
+
+def _variant(dtype, head_dim: int) -> str:
+    """Which K2/K4 kernel takes these inputs: ``"sm90"`` (wgmma + TMA) for
+    bf16 at D = 64 or 128, else ``"simt"``. f32 stays on the CUDA cores:
+    wgmma would compute it in TF32."""
+    return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "simt"
+
+
+def _rounds_p(q) -> bool:
+    """The plain versions round P (and dS) to bf16 where the kernel does."""
+    return _variant(q.dtype, q.shape[-1]) == "sm90"
 
 
 def _block_for(requested: int, seq_len: int) -> int:
@@ -65,8 +91,11 @@ def flash_forward_plain(q, k, v, causal: bool = True, block_q: int = 128,
                         block_k: int = 128):
     """The plain version of K2: the same query-block x key-block walk with
     the running max / normaliser / accumulator in f32, the causal early exit
-    and the tail-key mask. Returns ``(out (B,H,S,D), lse (B*H,S,1))``."""
+    and the tail-key mask; for the ``"sm90"`` variant's inputs P is rounded
+    to bf16 before PV (l sums the f32 P). Returns
+    ``(out (B,H,S,D), lse (B*H,S,1))``."""
     B, H, S, D = q.shape
+    round_p = _rounds_p(q)
     bq = _block_for(block_q, S)
     bk = _block_for(block_k, S)
     qr = q.reshape(B * H, S, D).float()
@@ -98,7 +127,7 @@ def flash_forward_plain(q, k, v, causal: bool = True, block_q: int = 128,
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(dim=-1, keepdim=True)
-            acc = alpha * acc + p @ v_blk
+            acc = alpha * acc + (p.bfloat16().float() if round_p else p) @ v_blk
             m = m_new
         l_safe = torch.clamp_min(l, 1e-30)
         outs.append(acc / l_safe)
@@ -119,17 +148,23 @@ def flash_forward(q, k, v, causal: bool = True, block_q: int = 128,
         return flash_forward_plain(q, k, v, causal, block_q, block_k)
     _check_launch(q, k, v)
     B, H, S, D = q.shape
+    variant = _variant(q.dtype, D)
+    if variant == "sm90":
+        _check_tma_aligned(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S, 1), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):  # the C entry launches on the current device
-        rc = lib.tcc_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            B * H, S, D, 1.0 / (D**0.5), int(causal), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(rc, "tcc_flash_fwd")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                B * H, S, D, 1.0 / (D**0.5), int(causal))
+        if variant == "sm90":
+            rc = lib.tcc_flash_fwd_sm90(*args, stream)
+        else:
+            rc = lib.tcc_flash_fwd(*args, int(q.dtype == torch.bfloat16), stream)
+    _build.check(rc, f"tcc_flash_fwd ({variant})")
     flash_forward.launches += 1
+    flash_forward.launches_by_variant[variant] += 1
     return out, lse
 
 
@@ -165,8 +200,20 @@ def _check_launch(q, k, v, *rest):
         raise ValueError("flash attention needs contiguous inputs")
 
 
-#: Kernel launches since the last reset (ops.reset_launch_counts()).
+def _check_tma_aligned(*tensors):
+    """TMA reads the ``"sm90"`` kernels' bf16 inputs from 16-byte aligned
+    bases (its row strides, D * 2 bytes, are multiples of 16 already)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(
+            "the sm90 flash kernels need 16-byte aligned q, k, v and dO "
+            f"(data_ptr() % 16 = {[t.data_ptr() % 16 for t in tensors]})"
+        )
+
+
+#: Kernel launches since the last reset (ops.reset_launch_counts()), in all
+#: and by variant.
 flash_forward.launches = 0
+flash_forward.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -228,9 +275,12 @@ def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
                              block_q: int = 128, block_k: int = 128):
     """The plain version of K4: per key block, stream the query blocks from
     the causal start ``(ki * block_k) // block_q``, rebuild P and accumulate
-    ``dV += P^T dO`` and ``dK += dS^T Q`` in f32; cast once to k's and v's
-    types. Returns ``(dk, dv)``."""
+    ``dV += P^T dO`` and ``dK += dS^T Q`` in f32 (for the ``"sm90"``
+    variant's inputs with P and dS rounded to bf16 first); cast once to k's
+    and v's types. Returns ``(dk, dv)``."""
     B, H, S, D = q.shape
+    round_p = _rounds_p(q)
+    as_operand = (lambda t: t.bfloat16().float()) if round_p else (lambda t: t)
     bq = _block_for(block_q, S)
     bk = _block_for(block_k, S)
     qr, kr, vr, dor = _flat(q), _flat(k), _flat(v), _flat(do)
@@ -250,9 +300,9 @@ def flash_backward_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
                 q_pos = qi * bq + torch.arange(q_blk.shape[1], device=q.device)[:, None]
                 s = torch.where(k_pos[None, :] <= q_pos, s, NEG_INF)
             p = torch.exp(s - lse[:, rows])
-            dv = dv + p.transpose(1, 2) @ do_blk
+            dv = dv + as_operand(p).transpose(1, 2) @ do_blk
             ds = p * (do_blk @ v_blk.transpose(1, 2) - delta[:, rows]) * scale
-            dk = dk + ds.transpose(1, 2) @ q_blk
+            dk = dk + as_operand(ds).transpose(1, 2) @ q_blk
         dks.append(dk)
         dvs.append(dv)
     return (torch.cat(dks, dim=1).to(k.dtype).reshape(B, H, S, D),
@@ -296,24 +346,32 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True,
         return flash_backward_dkv_plain(q, k, v, do, lse, delta, causal, block_q, block_k)
     _check_launch(q, k, v, do, lse, delta)
     B, H, S, D = q.shape
+    variant = _variant(q.dtype, D)
+    if variant == "sm90":
+        _check_tma_aligned(q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
-        rc = lib.tcc_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, S, D, 1.0 / (D**0.5),
-            int(causal), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(rc, "tcc_flash_bwd_dkv")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, S, D, 1.0 / (D**0.5),
+                int(causal))
+        if variant == "sm90":
+            rc = lib.tcc_flash_bwd_dkv_sm90(*args, stream)
+        else:
+            rc = lib.tcc_flash_bwd_dkv(*args, int(q.dtype == torch.bfloat16), stream)
+    _build.check(rc, f"tcc_flash_bwd_dkv ({variant})")
     flash_backward_dkv.launches += 1
+    flash_backward_dkv.launches_by_variant[variant] += 1
     return dk, dv
 
 
-#: Kernel launches since the last reset (ops.reset_launch_counts()).
+#: Kernel launches since the last reset (ops.reset_launch_counts()); K4 also
+#: by variant.
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
+flash_backward_dkv.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def flash_backward(q, k, v, out, lse, do, causal: bool = True, block_q: int = 128,

@@ -260,4 +260,5 @@ def run(
             round(kernel_rel_err, 6) if kernel_rel_err is not None else None
         ),
         "kernel_launches": ops.launch_counts(),
+        "kernel_launches_by_variant": ops.variant_launch_counts(),
     }
