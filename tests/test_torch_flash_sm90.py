@@ -1,12 +1,13 @@
-"""The choice between K2's and K4's two kernels, and the plain versions walked
-with the Hopper kernels' tiles, against the JAX package.
+"""The choice between K2's, K3's and K4's two kernels, and the plain versions
+walked with the Hopper kernels' tiles, against the JAX package.
 
 The ``"sm90"`` kernels (wgmma + TMA) take bf16 at D = 64 or 128 and walk
-128-key tiles for 64-row query groups (K2) and 64-query tiles for 64-key
-groups (K4); their plain versions, run here on the CPU with those blocks,
-are held against the JAX kernels in interpret mode at the same blocks, in
-f32, with tests/test_ops.py's tolerances. The bf16 rounding of P (and dS)
-that the ``"sm90"`` kernels add is pinned on a single block.
+128-key tiles for 64-row query groups (K2), 64-key tiles for 128-query
+blocks (K3) and 64-query tiles for 64-key groups (K4); their plain versions,
+run here on the CPU with those blocks, are held against the JAX kernels in
+interpret mode at the same blocks, in f32, with tests/test_ops.py's
+tolerances. The bf16 rounding of P (and dS) that the ``"sm90"`` kernels add
+is pinned on a single block.
 """
 
 import importlib
@@ -25,6 +26,8 @@ jfa = importlib.import_module("tpu_cc_manager.ops.flash_attention")
 # The Hopper kernels' tiles: K2 streams 128-key tiles past 64-row query
 # groups; K4 streams 64-query tiles past 64- or 128-key blocks.
 SM90_BLOCK_Q, SM90_BLOCK_K = 64, 128
+# K3 streams 64-key tiles past 128-query blocks.
+DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 
 
 def normal(shape, seed):
@@ -98,6 +101,33 @@ def test_plain_dkv_at_sm90_tiles_matches_jax_grad(causal):
     assert torch.equal(leaves[1].grad, dk) and torch.equal(leaves[2].grad, dv)
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_plain_dq_at_sm90_tiles_matches_jax_grad(causal):
+    """K3's plain version walked with the Hopper kernel's tiles (128-query
+    blocks, 64-key tiles: a causal walk that ends at ((qi + 1) * 128 - 1)
+    // 64) against the dq of ``jax.grad`` through the JAX
+    ``flash_attention`` at the same blocks, at S = 200 and D = 64."""
+    S, D = 200, 64
+    q, k, v = attn_inputs(S, D, seed=11)
+    w = np.arange(S, dtype=np.float32)[None, None, :, None] / S
+
+    def loss(q, k, v):
+        return jnp.sum(w * jfa.flash_attention(q, k, v, causal, DQ_BLOCK_Q, DQ_BLOCK_K))
+
+    want_dq = jax.grad(loss)(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    g = torch.from_numpy(np.broadcast_to(w, (1, 2, S, D)).copy())
+    out, lse = tfa.flash_forward_plain(tq, tk, tv, causal, DQ_BLOCK_Q, DQ_BLOCK_K)
+    delta = tfa.attention_delta(out, g)
+    dq = tfa.flash_backward_dq_plain(tq, tk, tv, g, lse, delta, causal,
+                                     DQ_BLOCK_Q, DQ_BLOCK_K)
+    np.testing.assert_allclose(to_np(dq), np.asarray(want_dq), atol=1e-4, rtol=1e-4)
+    # The autograd Function at the same blocks gives the same dq.
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    (g * tfa.flash_attention(*leaves, causal, DQ_BLOCK_Q, DQ_BLOCK_K)).sum().backward()
+    assert torch.equal(leaves[0].grad, dq)
+
+
 def one_block(S, D, seed):
     """bf16 inputs and their f32 scores for a single causal block."""
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in attn_inputs(S, D, seed=seed))
@@ -144,23 +174,45 @@ def test_plain_dkv_rounds_p_and_ds_like_the_sm90_kernel():
     assert torch.equal(dk, want_dk)
 
 
+def test_plain_dq_rounds_ds_like_the_sm90_kernel():
+    """For the sm90 variant's inputs dQ takes dS rounded to bf16; for the
+    simt variant's (D = 16), dS stays f32."""
+    S = 24
+    for D, rounds in ((64, True), (16, False)):
+        q, k, v, s = one_block(S, D, seed=13)
+        do = torch.from_numpy(normal((1, 2, S, D), 17)).to(torch.bfloat16)
+        out, lse = tfa.flash_forward_plain(q, k, v, True, S, S)
+        delta = tfa.attention_delta(out, do)
+        p = torch.exp(s - lse)
+        ds = p * (do.float() @ v.float().transpose(-1, -2) - delta) * (1.0 / D**0.5)
+        rounded = (ds.bfloat16().float() @ k.float()).bfloat16()
+        unrounded = (ds @ k.float()).bfloat16()
+        assert not torch.equal(rounded, unrounded)
+        dq = tfa.flash_backward_dq_plain(q, k, v, do, lse, delta, True, S, S)
+        assert torch.equal(dq, rounded if rounds else unrounded)
+
+
 def test_variant_counts_start_at_zero_and_raise_off_the_cpu():
     """The per-variant counts sit beside the totals; a tensor off the CPU
     takes no plain version, and nothing is counted without a launch."""
     ops.reset_launch_counts()
     zero = {"sm90": 0, "simt": 0}
-    assert ops.variant_launch_counts() == {"K2": zero, "K4": zero}
+    every = {"K1": zero, "K2": zero, "K3": zero, "K4": zero}
+    assert ops.variant_launch_counts() == every
     for D in (16, 64):
         q = torch.empty((1, 2, 8, D), device="meta", dtype=torch.bfloat16)
         lse = torch.empty((2, 8, 1), device="meta")
         with pytest.raises(ValueError, match="CUDA"):
             tfa.flash_forward(q, q, q)
         with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_backward_dq(q, q, q, q, lse, lse)
+        with pytest.raises(ValueError, match="CUDA"):
             tfa.flash_backward_dkv(q, q, q, q, lse, lse)
-    # CPU tensors run the plain versions: no launch of either kernel.
+    # CPU tensors run the plain versions: no launch of any kernel.
     q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
     tfa.flash_forward(q, q, q)
-    assert ops.variant_launch_counts() == {"K2": zero, "K4": zero}
+    tfa.flash_backward_dq(q, q, q, q, torch.zeros((2, 8, 1)), torch.zeros((2, 8, 1)))
+    assert ops.variant_launch_counts() == every
     assert ops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 

@@ -57,6 +57,32 @@ class TestTiledMatmul:
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(to_np(got), a @ b, atol=1e-1, rtol=1e-2)
 
+    @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+    def test_plain_at_the_sm90_tile_matches_jax(self, out_dtype):
+        """K1's plain version at the bf16 kernel's tile (a 64-deep K walk)
+        against the JAX ``tiled_matmul`` at the same blocks."""
+        assert tmm.KERNEL_BLOCKS == (128, 128, 64)
+        a, b = normal((256, 512), 6), normal((512, 256), 7)
+        ja, jb = (jnp.asarray(x).astype(jnp.bfloat16) for x in (a, b))
+        jdtype = jnp.float32 if out_dtype == torch.float32 else jnp.bfloat16
+        want = jmm.tiled_matmul(ja, jb, *tmm.KERNEL_BLOCKS, out_dtype=jdtype)
+        ta, tb = (torch.from_numpy(x).to(torch.bfloat16) for x in (a, b))
+        got = tmm.tiled_matmul(ta, tb, out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        np.testing.assert_allclose(to_np(got), np.asarray(want.astype(jnp.float32)),
+                                   atol=1e-3, rtol=1e-5 if out_dtype == torch.float32 else 1e-2)
+
+    @pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "sm90"), (torch.float32, "simt")])
+    def test_variant_is_a_function_of_dtype(self, dtype, variant):
+        """bf16 operands take the wgmma kernel, f32 the SIMT one; a tensor
+        off the CPU counts no launch without a card."""
+        assert tmm._variant(dtype) == variant
+        ops.reset_launch_counts()
+        a = torch.empty((128, 128), device="meta", dtype=dtype)
+        with pytest.raises(ValueError, match="CUDA"):
+            tmm.tiled_matmul(a, a)
+        assert ops.variant_launch_counts()["K1"] == {"sm90": 0, "simt": 0}
+
     def test_rejects_indivisible(self):
         with pytest.raises(ValueError):
             jmm.tiled_matmul(jnp.zeros((100, 128)), jnp.zeros((128, 128)), 64, 64, 64)

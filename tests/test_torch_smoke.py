@@ -12,6 +12,7 @@ import sys
 import pytest
 import torch
 
+from tpu_cc_manager_torch.ops.matmul import KERNEL_BLOCKS
 from tpu_cc_manager_torch.smoke import llama_infer, runner
 from tpu_cc_manager_torch.utils import gpu_info
 from tpu_cc_manager_torch.utils.poll import poll_until
@@ -37,9 +38,11 @@ def test_matmul_smoke_passes_on_cpu(kernel):
     assert result["kernel"] == kernel
     assert result["backend"] == "cpu" and result["generation"] is None
     assert result["ident_err"] <= 1e-6 and result["rowsum_rel_err"] <= 2e-2
-    assert result["blocks"] == ([128, 128, 32] if kernel == "cuda" else None)
+    assert result["blocks"] == (list(KERNEL_BLOCKS) if kernel == "cuda" else None)
     # CPU tensors take the plain version: no kernel launch is counted.
     assert result["kernel_launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    zero = {"sm90": 0, "simt": 0}
+    assert result["kernel_launches_by_variant"] == dict.fromkeys(("K1", "K2", "K3", "K4"), zero)
     assert result["mfu"] is None
 
 

@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a): K2 forward (online softmax), K3 dQ and
-// K4 dK/dV (backward by block recomputation); K2 and K4 each in two variants.
+// K4 dK/dV (backward by block recomputation); each in two variants.
 //
 // K2 replaces tpu_cc_manager/ops/flash_attention.py::_fwd_kernel
 // (pl.pallas_call in _flash_forward). Same contract: q, k, v are (B*H, S, D)
@@ -53,16 +53,17 @@
 // at about 300 operations per byte the tensor cores would be the limit. Like
 // K2 these first versions run every product in f32 on the CUDA cores from
 // tiles staged in shared memory, so they are operation-bound far above the
-// tensor-core bound. K4's sm90 variant below moves its products onto wgmma;
-// K3's is later work.
+// tensor-core bound. The sm90 variants below move K3's and K4's products
+// onto wgmma.
 //
 // D may be any multiple of 8 up to 128 (the wrappers check). Shared memory
 // exceeds 48 KB at D=128, so each entry raises its kernel's dynamic limit.
 //
 // The Hopper variants ("sm90": flash_fwd_sm90_kernel for K2,
-// flash_bwd_dkv_sm90_kernel for K4) take bf16 at D = 64 or 128, the Llama-3
-// heads; the wrapper picks them from (dtype, D) before the launch, and the
-// kernels above keep f32 and every other D. What bounds attention at the
+// flash_bwd_dq_sm90_kernel for K3, flash_bwd_dkv_sm90_kernel for K4) take
+// bf16 at D = 64 or 128, the Llama-3 heads; the wrapper picks them from
+// (dtype, D) before the launch, and the kernels above keep f32 and every
+// other D. What bounds attention at the
 // training shape is the tensor cores (about 300 operations per byte), and
 // the kernels above reach them not at all: their products are f32 FMAs on
 // the CUDA cores, two shared-memory loads each. The sm90 kernels run every
@@ -76,6 +77,12 @@
 //   the one numerical change from the kernels above, and the rounding that
 //   reference_attention and the einsum Llama path make too. Masks run only
 //   on the diagonal and ragged tail tiles.
+// - K3: blocks of 128 queries (two consumer warpgroups) with Q and dO
+//   resident, 64-key K/V tiles streamed from key 0 to the diagonal; S = Q K^T
+//   and dP = dO V^T (SS), P and dS on the accumulators from each row's lse
+//   and delta held in registers, then dQ += dS K with dS rounded to bf16 (RS)
+//   and the K tile that S read K-major read again MN-major. A warpgroup skips
+//   the products of a tile that lies wholly past its queries.
 // - K4: blocks of 64 keys per consumer warpgroup (two at D = 64, one at
 //   D = 128, so that two f32 64 x D accumulators fit in registers without
 //   spills), K and V resident, 64-query Q/dO tiles streamed with lse and
@@ -899,6 +906,185 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   }
 }
 
+constexpr int DQ_BQ = 128;      // queries per block
+constexpr int DQ_BKV = 64;      // keys per streamed tile
+constexpr int DQ_CONSUMERS = 2; // warpgroups of 64 query rows each
+constexpr int DQ_THREADS = DQ_CONSUMERS * 128 + 32;  // and one producer warp
+constexpr int DQ_STAGES = 2;    // K/V ring depth
+
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t Q_BOX = DQ_BQ * sm90::ROW_BYTES;    // one 64-column box of Q
+  static constexpr uint32_t Q_BYTES = (D / 64) * Q_BOX;         // Q (or dO), resident
+  static constexpr uint32_t KV_BOX = DQ_BKV * sm90::ROW_BYTES;
+  static constexpr uint32_t KV_BYTES = (D / 64) * KV_BOX;       // one K (or V) tile
+  static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;         // K then V
+  // + 1024 so that the tiles can start on a 1024-byte boundary
+  static constexpr uint32_t BYTES = 2 * Q_BYTES + DQ_STAGES * STAGE_BYTES + sm90::GROUP_BYTES;
+};
+
+// K3, Hopper variant: one block per (b*h, 128-query tile), the longest causal
+// walks first. A producer warp loads Q and dO once and streams K/V tiles of
+// 64 keys through a two-stage TMA ring from key 0 to the causal diagonal.
+// Each consumer warpgroup owns 64 query rows, holding their lse * log2e and
+// delta in registers: S = Q K^T and dP = dO V^T as SS wgmma chains, P =
+// exp2(S * scale * log2e - lse2) and dS = P (dP - delta) * scale on the f32
+// accumulators, then dQ += dS K with dS rounded to bf16 in registers (RS) and
+// the same K tile read MN-major. dQ stays in f32 registers across the walk
+// and is written once; no atomics.
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int S, float scale, int causal) {
+  using L = DqSmem<D>;
+  constexpr int NB = D / 64;
+  extern __shared__ uint8_t dq90_smem[];
+  __shared__ uint64_t qdo_full, kv_full[DQ_STAGES], kv_empty[DQ_STAGES];
+  uint8_t* q_s = sm90::align1024(dq90_smem);
+  uint8_t* do_s = q_s + L::Q_BYTES;
+  uint8_t* ring = do_s + L::Q_BYTES;  // stage s: K at s * STAGE_BYTES, V after it
+
+  const int bh = blockIdx.x;
+  const int qi = gridDim.y - 1 - blockIdx.y;
+  const int num_k_tiles = (S + DQ_BKV - 1) / DQ_BKV;
+  const int k_hi =
+      causal ? min(((qi + 1) * DQ_BQ - 1) / DQ_BKV + 1, num_k_tiles) : num_k_tiles;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&qdo_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], DQ_CONSUMERS * 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == DQ_CONSUMERS * 4) {  // the producer
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&qdo_full, 2 * L::Q_BYTES);
+      for (int b = 0; b < NB; ++b) {
+        sm90::tma_load_3d(q_s + b * L::Q_BOX, &tm_q, &qdo_full, b * 64, qi * DQ_BQ, bh);
+        sm90::tma_load_3d(do_s + b * L::Q_BOX, &tm_do, &qdo_full, b * 64, qi * DQ_BQ, bh);
+      }
+      for (int i = 0; i < k_hi; ++i) {
+        const int s = i % DQ_STAGES;
+        sm90::mbar_wait(&kv_empty[s], ((i / DQ_STAGES) & 1) ^ 1);
+        uint8_t* k_t = ring + s * L::STAGE_BYTES;
+        uint8_t* v_t = k_t + L::KV_BYTES;
+        sm90::mbar_arrive_expect_tx(&kv_full[s], L::STAGE_BYTES);
+        for (int b = 0; b < NB; ++b) {
+          sm90::tma_load_3d(k_t + b * L::KV_BOX, &tm_k, &kv_full[s], b * 64, i * DQ_BKV, bh);
+          sm90::tma_load_3d(v_t + b * L::KV_BOX, &tm_v, &kv_full[s], b * 64, i * DQ_BKV, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int quad = lane % 4;
+  const int r0 = 16 * (warp % 4) + lane / 4;  // this thread's rows: r0 and r0 + 8
+  const int q_first = qi * DQ_BQ + wg * 64;   // the warpgroup's first query
+  const int q0 = q_first + r0;
+  const int q1 = q0 + 8;
+  const uint32_t q_addr = sm90::smem_u32(q_s) + wg * 64 * sm90::ROW_BYTES;
+  const uint32_t do_addr = sm90::smem_u32(do_s) + wg * 64 * sm90::ROW_BYTES;
+  const float scale_log2 = scale * sm90::LOG2E;
+  const size_t row0 = static_cast<size_t>(bh) * S + q0;
+  const size_t row1 = row0 + 8;
+  // A phantom row (q >= S) keeps lse = delta = 0: its Q and dO rows are
+  // TMA's zeros, so its dS is exactly 0, and it is never written.
+  const float lse2_0 = q0 < S ? lse[row0] * sm90::LOG2E : 0.0f;
+  const float lse2_1 = q1 < S ? lse[row1] * sm90::LOG2E : 0.0f;
+  const float delta0 = q0 < S ? delta[row0] : 0.0f;
+  const float delta1 = q1 < S ? delta[row1] : 0.0f;
+  // Causal: the block's last tile holds only keys past this warpgroup's
+  // queries when it is the first warpgroup; it waits for the tile, skips
+  // the products and releases the stage.
+  const int wg_hi = causal ? min((q_first + 63) / DQ_BKV + 1, k_hi) : k_hi;
+
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.0f;
+
+  sm90::mbar_wait(&qdo_full, 0);
+  for (int i = 0; i < k_hi; ++i) {
+    const int s = i % DQ_STAGES;
+    sm90::mbar_wait(&kv_full[s], (i / DQ_STAGES) & 1);
+    if (i < wg_hi) {
+      const uint32_t k_addr = sm90::smem_u32(ring + s * L::STAGE_BYTES);
+      const uint32_t v_addr = k_addr + L::KV_BYTES;
+
+      float sc[DQ_BKV / 2], dp[DQ_BKV / 2];  // S and dP: queries x keys
+#pragma unroll
+      for (int j = 0; j < DQ_BKV / 2; ++j) sc[j] = dp[j] = 0.0f;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        sm90::wgmma_ss(sc, sm90::desc_kmajor(q_addr, L::Q_BOX, ks),
+                       sm90::desc_kmajor(k_addr, L::KV_BOX, ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        sm90::wgmma_ss(dp, sm90::desc_kmajor(do_addr, L::Q_BOX, ks),
+                       sm90::desc_kmajor(v_addr, L::KV_BOX, ks), ks > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+
+      // Masks only where a key can be invalid: the ragged tail tile and the
+      // tiles that reach past this warpgroup's first query.
+      const bool masked =
+          (i + 1) * DQ_BKV > S || (causal && (i + 1) * DQ_BKV - 1 > q_first);
+      uint32_t dsf[DQ_BKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DQ_BKV / 16; ++kk) {
+        float ds[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const bool hi = e & 2;  // row r0 + 8
+          float x = sc[8 * kk + e] * scale_log2 - (hi ? lse2_1 : lse2_0);
+          if (masked) {
+            const int key = i * DQ_BKV + 16 * kk + ((e & 4) ? 8 : 0) + 2 * quad + (e & 1);
+            if (key >= S || (causal && key > (hi ? q1 : q0))) x = NEG_INF;
+          }
+          ds[e] = exp2f(x) * (dp[8 * kk + e] - (hi ? delta1 : delta0)) * scale;
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsf[kk][r] = sm90::pack_bf16(ds[2 * r], ds[2 * r + 1]);
+      }
+
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_BKV / 16; ++kk)
+        sm90::wgmma_rs(dq_acc, dsf[kk], sm90::desc_mnmajor(k_addr, L::KV_BOX, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(dq_acc);
+      sm90::fence_regs(dsf);
+    }
+    sm90::mbar_arrive(&kv_empty[s]);
+  }
+
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * quad;
+    if (q0 < S)
+      *reinterpret_cast<uint32_t*>(dq + row0 * D + col) =
+          sm90::pack_bf16(dq_acc[4 * j], dq_acc[4 * j + 1]);
+    if (q1 < S)
+      *reinterpret_cast<uint32_t*>(dq + row1 * D + col) =
+          sm90::pack_bf16(dq_acc[4 * j + 2], dq_acc[4 * j + 3]);
+  }
+}
+
 template <int D, int BKV>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                     int S, float scale, int causal, void* stream) {
@@ -938,6 +1124,27 @@ int launch_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void*
       <<<grid, NWG * 128 + 32, L::BYTES, static_cast<cudaStream_t>(stream)>>>(
           tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
           static_cast<__nv_bfloat16*>(dv), S, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dq, int BH, int S,
+                       float scale, int causal, void* stream) {
+  using L = DqSmem<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::make_map(&tq, q, BH, S, D, DQ_BQ);
+  if (err == cudaSuccess) err = sm90::make_map(&tdo, dout, BH, S, D, DQ_BQ);
+  if (err == cudaSuccess) err = sm90::make_map(&tk, k, BH, S, D, DQ_BKV);
+  if (err == cudaSuccess) err = sm90::make_map(&tv, v, BH, S, D, DQ_BKV);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_sm90_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L::BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(BH, (S + DQ_BQ - 1) / DQ_BQ);
+  flash_bwd_dq_sm90_kernel<D><<<grid, DQ_THREADS, L::BYTES, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), S, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -989,6 +1196,20 @@ int tcc_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, voi
   float* l = static_cast<float*>(lse);
   if (D == 64) return launch_fwd_sm90<64, 128>(q, k, v, o, l, BH, S, scale, causal, stream);
   if (D == 128) return launch_fwd_sm90<128, 128>(q, k, v, o, l, BH, S, scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3, Hopper variant. As tcc_flash_bwd_dq for bf16, with the guarantees of
+// tcc_flash_fwd_sm90 on q, k, v and dout.
+int tcc_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dq, int BH, int S, int D,
+                          float scale, int causal, void* stream) {
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (D == 64)
+    return launch_bwd_dq_sm90<64>(q, k, v, dout, l, dl, dq, BH, S, scale, causal, stream);
+  if (D == 128)
+    return launch_bwd_dq_sm90<128>(q, k, v, dout, l, dl, dq, BH, S, scale, causal, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -9,60 +9,33 @@
 // What bounds it on the H100: at the smoke's 4096^3 bf16 product the work is
 // 2*M*N*K = 137 GFLOP against (M*K + K*N)*2 + M*N*4 = 134 MB of traffic, so
 // the tensor cores (989 TFLOP/s dense bf16) and not the 3.35 TB/s of HBM are
-// the limit. The design feeds the tensor cores through mma.sync (WMMA
-// 16x16x16 bf16 fragments, f32 accumulators), stages 128x32 / 32x128 bf16
-// tiles in shared memory with cp.async double buffering so the next K tile
-// loads while the current one multiplies, and reuses each staged tile across
-// 8 warps (each warp owns a 64x32 slice of the 128x128 output tile). It does
-// not use wgmma or TMA, so it cannot reach the card's peak: that is later work.
+// the limit. bf16 operands take the "sm90" kernel: one block per 128 x 128
+// output tile, a producer warp that keeps a four-stage TMA ring of 64-deep K
+// steps full (A's 128 x 64 tile K-major, B's 64 x 128 tile MN-major, both
+// with the 128-byte swizzle of sm90.cuh), and two consumer warpgroups of 64
+// rows that each run m64n128k16 wgmma on the staged tiles into 64 f32
+// accumulators a thread; each k-step waits for its own wgmma group before
+// it releases the stage. (Keeping one group in flight across steps measured
+// 4-6% slower at 4096^3, probably because the other warpgroup already fills
+// the tensor cores during a wait and the later release shortens the ring by
+// a stage.) The epilogue writes straight from the registers.
 //
-// f32 operands (which tiled_matmul accepts, like the TPU kernel) take a plain
-// shared-memory SIMT kernel in full f32, so the result keeps f32 precision
-// (no TF32 rounding).
+// f32 operands (which tiled_matmul accepts, like the TPU kernel) take the
+// "simt" kernel, plain shared-memory FMAs in full f32, so the result keeps
+// f32 precision (wgmma would compute it in TF32).
 //
 // Plain C interface, loaded with ctypes. Every entry returns cudaGetLastError()
 // right after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstddef>
+#include <cstdint>
 
-using namespace nvcuda;
+#include "sm90.cuh"
 
 namespace {
-
-// ---- bf16 tensor-core kernel ------------------------------------------------
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int WARPS_M = 2;
-constexpr int WARPS_N = 4;
-constexpr int THREADS = WARPS_M * WARPS_N * 32;  // 256
-constexpr int WM = BM / WARPS_M;                  // 64 rows per warp
-constexpr int WN = BN / WARPS_N;                  // 32 cols per warp
-constexpr int FM = WM / 16;                       // 4 fragments down
-constexpr int FN = WN / 16;                       // 2 fragments across
-// Row pitches padded by 8 bf16 (16 bytes): rows start on different banks, and
-// every fragment pointer stays 32-byte aligned as WMMA requires.
-constexpr int A_LD = BK + 8;
-constexpr int B_LD = BN + 8;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <typename OutT>
 __device__ __forceinline__ OutT from_float(float x);
@@ -77,111 +50,119 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bf16)
 }
 
+// ---- bf16 wgmma kernel ("sm90") ---------------------------------------------
+
+constexpr int MM_BM = 128;
+constexpr int MM_BN = 128;
+constexpr int MM_BK = 64;
+constexpr int MM_CONSUMERS = 2;  // warpgroups of 64 output rows each
+constexpr int MM_THREADS = MM_CONSUMERS * 128 + 32;  // and one producer warp
+constexpr int MM_STAGES = 4;
+constexpr uint32_t A_BYTES = MM_BM * sm90::ROW_BYTES;   // 128 rows x 64 k: one box
+constexpr uint32_t B_BOX = MM_BK * sm90::ROW_BYTES;     // 64 k x 64 columns
+constexpr uint32_t B_BYTES = (MM_BN / 64) * B_BOX;
+constexpr uint32_t STAGE_BYTES = A_BYTES + B_BYTES;     // 32 KB
+// + 1024 so that the ring can start on a 1024-byte boundary
+constexpr uint32_t MM_SMEM_BYTES = MM_STAGES * STAGE_BYTES + sm90::GROUP_BYTES;
+
 template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-    mm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
-                   const __nv_bfloat16* __restrict__ B, OutT* __restrict__ C,
-                   int K, int lda, int ldb, int ldc) {
-  __shared__ __align__(128) __nv_bfloat16 As[2][BM][A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[2][BK][B_LD];
+__global__ void __launch_bounds__(MM_THREADS, 1)
+    mm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
+                   const __grid_constant__ CUtensorMap tm_b, OutT* __restrict__ C, int N,
+                   int K) {
+  extern __shared__ uint8_t mm_smem[];
+  __shared__ uint64_t full[MM_STAGES], empty[MM_STAGES];
+  uint8_t* ring = sm90::align1024(mm_smem);  // stage s: A at s * STAGE_BYTES, B after it
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const __nv_bfloat16* Ablk = A + static_cast<size_t>(m0) * lda;
-  const __nv_bfloat16* Bblk = B + n0;
+  const int m0 = blockIdx.y * MM_BM;
+  const int n0 = blockIdx.x * MM_BN;
+  const int k_steps = K / MM_BK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < MM_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], MM_CONSUMERS * 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-  // One K tile: A is 128x32 (4 chunks of 8 bf16 per row), B is 32x128 (16
-  // chunks per row): 512 16-byte chunks each, two per thread.
-  auto load_stage = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int c = tid + i * THREADS;
-      int r = c >> 2, col = (c & 3) * 8;
-      cp_async16(&As[stage][r][col], Ablk + static_cast<size_t>(r) * lda + k0 + col);
+  if (warp == MM_CONSUMERS * 4) {  // the producer
+    if (lane == 0) {
+      for (int i = 0; i < k_steps; ++i) {
+        const int s = i % MM_STAGES;
+        sm90::mbar_wait(&empty[s], ((i / MM_STAGES) & 1) ^ 1);
+        uint8_t* a_t = ring + s * STAGE_BYTES;
+        uint8_t* b_t = a_t + A_BYTES;
+        sm90::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        sm90::tma_load_3d(a_t, &tm_a, &full[s], i * MM_BK, m0, 0);
+        for (int b = 0; b < MM_BN / 64; ++b)
+          sm90::tma_load_3d(b_t + b * B_BOX, &tm_b, &full[s], n0 + b * 64, i * MM_BK, 0);
+      }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int c = tid + i * THREADS;
-      int r = c >> 4, col = (c & 15) * 8;
-      cp_async16(&Bs[stage][r][col], Bblk + static_cast<size_t>(k0 + r) * ldb + col);
-    }
-    cp_async_commit();
-  };
-
-  const int k_steps = K / BK;
-  load_stage(0, 0);
-  for (int ks = 0; ks < k_steps; ++ks) {
-    const int cur = ks & 1;
-    if (ks + 1 < k_steps) {
-      load_stage(cur ^ 1, (ks + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(af[i], &As[cur][wm * WM + i * 16][kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(bf[j], &Bs[cur][kk][wn * WN + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    // Every warp is done with buffer `cur` before the next iteration's
-    // cp.async overwrites it.
-    __syncthreads();
+    return;
   }
 
-  // Epilogue: the output tile is written once.
-  if constexpr (sizeof(OutT) == sizeof(float)) {
+  const int wg = warp / 4;
+  const int quad = lane % 4;
+  const int r0 = 16 * (warp % 4) + lane / 4;  // this thread's rows: r0 and r0 + 8
+
+  float acc[MM_BN / 2];
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < MM_BN / 2; ++i) acc[i] = 0.0f;
+
+  for (int i = 0; i < k_steps; ++i) {
+    const int s = i % MM_STAGES;
+    sm90::mbar_wait(&full[s], (i / MM_STAGES) & 1);
+    const uint32_t a_addr = sm90::smem_u32(ring + s * STAGE_BYTES) + wg * 64 * sm90::ROW_BYTES;
+    const uint32_t b_addr = sm90::smem_u32(ring + s * STAGE_BYTES) + A_BYTES;
+    sm90::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        float* dst = reinterpret_cast<float*>(C) +
-                     static_cast<size_t>(m0 + wm * WM + i * 16) * ldc + n0 + wn * WN + j * 16;
-        wmma::store_matrix_sync(dst, acc[i][j], ldc, wmma::mem_row_major);
-      }
-  } else {
-    // Narrow output: round each fragment through a per-warp 16x16 f32 patch
-    // of the (now idle) A staging buffer.
-    float* patch = reinterpret_cast<float*>(&As[0][0][0]) + warp * 256;
+    for (int ks = 0; ks < MM_BK / 16; ++ks)
+      sm90::wgmma_ss_bmn(acc, sm90::desc_kmajor(a_addr, A_BYTES, ks),
+                         sm90::desc_mnmajor(b_addr, B_BOX, ks), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(acc);
+    sm90::mbar_arrive(&empty[s]);
+  }
+
+  const size_t row0 = static_cast<size_t>(m0 + wg * 64 + r0);
+  const size_t row1 = row0 + 8;
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::store_matrix_sync(patch, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int row0 = m0 + wm * WM + i * 16;
-        const int col0 = n0 + wn * WN + j * 16;
-        for (int e = lane; e < 256; e += 32) {
-          C[static_cast<size_t>(row0 + e / 16) * ldc + col0 + e % 16] =
-              from_float<OutT>(patch[e]);
-        }
-        __syncwarp();
-      }
+  for (int j = 0; j < MM_BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * quad;
+    if constexpr (sizeof(OutT) == sizeof(float)) {
+      *reinterpret_cast<float2*>(C + row0 * N + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(C + row1 * N + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    } else {
+      *reinterpret_cast<uint32_t*>(C + row0 * N + col) =
+          sm90::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(C + row1 * N + col) =
+          sm90::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
   }
 }
 
-// ---- f32 SIMT kernel ----------------------------------------------------------
+template <typename OutT>
+int launch_sm90(const void* a, const void* b, void* c, int M, int N, int K, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  cudaError_t err = sm90::make_map(&ta, a, 1, M, K, MM_BM);
+  if (err == cudaSuccess) err = sm90::make_map(&tb, b, 1, K, N, MM_BK);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(mm_sm90_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(MM_SMEM_BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(N / MM_BN, M / MM_BM);
+  mm_sm90_kernel<OutT><<<grid, MM_THREADS, MM_SMEM_BYTES, s>>>(ta, tb, static_cast<OutT*>(c),
+                                                                N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- f32 SIMT kernel ("simt") -------------------------------------------------
 
 constexpr int FBM = 64;
 constexpr int FBN = 64;
@@ -241,25 +222,16 @@ __global__ void __launch_bounds__(F_THREADS)
 
 extern "C" {
 
-// The caller guarantees M % 128 == N % 128 == K % 32 == 0, row-major
-// contiguous operands and 16-byte aligned base pointers.
-int tcc_matmul_bf16(const void* a, const void* b, void* c, int M, int N, int K,
-                    int lda, int ldb, int ldc, int out_bf16, void* stream) {
-  dim3 grid(N / BN, M / BM);
+// bf16 operands. The caller guarantees M % 128 == N % 128 == K % 64 == 0,
+// row-major contiguous operands and 16-byte aligned base pointers.
+int tcc_matmul_sm90(const void* a, const void* b, void* c, int M, int N, int K, int out_bf16,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* A = static_cast<const __nv_bfloat16*>(a);
-  const auto* B = static_cast<const __nv_bfloat16*>(b);
-  if (out_bf16) {
-    mm_bf16_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        A, B, static_cast<__nv_bfloat16*>(c), K, lda, ldb, ldc);
-  } else {
-    mm_bf16_kernel<float><<<grid, THREADS, 0, s>>>(A, B, static_cast<float*>(c), K,
-                                                   lda, ldb, ldc);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (out_bf16) return launch_sm90<__nv_bfloat16>(a, b, c, M, N, K, s);
+  return launch_sm90<float>(a, b, c, M, N, K, s);
 }
 
-// The caller guarantees M % 64 == N % 64 == K % 16 == 0.
+// f32 operands. The caller guarantees M % 64 == N % 64 == K % 16 == 0.
 int tcc_matmul_f32(const void* a, const void* b, void* c, int M, int N, int K,
                    int lda, int ldb, int ldc, int out_bf16, void* stream) {
   dim3 grid(N / FBN, M / FBM);

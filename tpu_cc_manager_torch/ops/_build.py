@@ -42,7 +42,7 @@ _F = ctypes.c_float
 #: C entry points of each library: name -> {symbol: argtypes}.
 SIGNATURES: dict[str, dict[str, list]] = {
     "matmul": {
-        "tcc_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "tcc_matmul_sm90": [_P, _P, _P, _I, _I, _I, _I, _P],
         "tcc_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
@@ -50,6 +50,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "tcc_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
         "tcc_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
         "tcc_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+        "tcc_flash_bwd_dq_sm90": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
         "tcc_flash_bwd_dkv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
 }

@@ -15,17 +15,17 @@ Each wrapper launches ``csrc/flash_attention.cu`` for CUDA tensors and runs
 its plain version (the TPU kernel's blocked algorithm in plain PyTorch) for
 CPU tensors; a CUDA input either launches the kernel or raises.
 
-K2 and K4 each have two hand-written kernels, and :func:`_variant` picks one
-from the inputs' dtype and head dim alone, before the launch (never on a
+K2, K3 and K4 each have two hand-written kernels, and :func:`_variant` picks
+one from the inputs' dtype and head dim alone, before the launch (never on a
 failure):
 
 - ``"sm90"`` for bf16 at D = 64 or 128 (the Llama-3 family's heads): wgmma
-  products fed by TMA (``csrc/sm90.cuh``). It rounds P (and K4's dS) to bf16
-  before the products that take them, as ``reference_attention`` and the
-  einsum Llama path round P before PV; the plain versions do the same for
-  these inputs;
+  products fed by TMA (``csrc/sm90.cuh``). It rounds P (and K3's and K4's
+  dS) to bf16 before the products that take them, as ``reference_attention``
+  and the einsum Llama path round P before PV (and autograd of the einsum
+  rounds dS); the plain versions do the same for these inputs;
 - ``"simt"`` for f32 and every other D: the first kernels, with every
-  product in f32 on the CUDA cores (K3 has only this one).
+  product in f32 on the CUDA cores.
 
 ``block_q``/``block_k`` tile the plain versions as they tile the Pallas
 kernels (rounded up to a multiple of 8 and clamped, :func:`_block_for`). The
@@ -46,7 +46,7 @@ VARIANTS = ("sm90", "simt")
 
 
 def _variant(dtype, head_dim: int) -> str:
-    """Which K2/K4 kernel takes these inputs: ``"sm90"`` (wgmma + TMA) for
+    """Which K2/K3/K4 kernel takes these inputs: ``"sm90"`` (wgmma + TMA) for
     bf16 at D = 64 or 128, else ``"simt"``. f32 stays on the CUDA cores:
     wgmma would compute it in TF32."""
     return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "simt"
@@ -238,10 +238,12 @@ def flash_backward_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
                             block_q: int = 128, block_k: int = 128):
     """The plain version of K3: per query block, stream the key blocks up to
     the causal diagonal, rebuild ``P = exp(s - lse)`` and accumulate
-    ``dQ += dS K`` in f32, with ``dS = P * (dO V^T - delta) * scale``; cast
-    once to q's type. Tail blocks are simply shorter: the phantom rows and
-    keys the TPU kernel pads and masks to exact zeros are absent here."""
+    ``dQ += dS K`` in f32, with ``dS = P * (dO V^T - delta) * scale`` (for
+    the ``"sm90"`` variant's inputs rounded to bf16 first); cast once to q's
+    type. Tail blocks are simply shorter: the phantom rows and keys the TPU
+    kernel pads and masks to exact zeros are absent here."""
     B, H, S, D = q.shape
+    round_ds = _rounds_p(q)
     bq = _block_for(block_q, S)
     bk = _block_for(block_k, S)
     qr, kr, vr, dor = _flat(q), _flat(k), _flat(v), _flat(do)
@@ -266,7 +268,7 @@ def flash_backward_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
                 s = torch.where(k_pos[None, :] <= q_pos, s, NEG_INF)
             p = torch.exp(s - lse_blk)
             ds = p * (do_blk @ v_blk.transpose(1, 2) - delta_blk) * scale
-            acc = acc + ds @ k_blk
+            acc = acc + (ds.bfloat16().float() if round_ds else ds) @ k_blk
         blocks.append(acc)
     return torch.cat(blocks, dim=1).to(q.dtype).reshape(B, H, S, D)
 
@@ -326,16 +328,22 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True,
         return flash_backward_dq_plain(q, k, v, do, lse, delta, causal, block_q, block_k)
     _check_launch(q, k, v, do, lse, delta)
     B, H, S, D = q.shape
+    variant = _variant(q.dtype, D)
+    if variant == "sm90":
+        _check_tma_aligned(q, k, v, do)
     dq = torch.empty_like(q)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
-        rc = lib.tcc_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), B * H, S, D, 1.0 / (D**0.5), int(causal),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(rc, "tcc_flash_bwd_dq")
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), B * H, S, D, 1.0 / (D**0.5), int(causal))
+        if variant == "sm90":
+            rc = lib.tcc_flash_bwd_dq_sm90(*args, stream)
+        else:
+            rc = lib.tcc_flash_bwd_dq(*args, int(q.dtype == torch.bfloat16), stream)
+    _build.check(rc, f"tcc_flash_bwd_dq ({variant})")
     flash_backward_dq.launches += 1
+    flash_backward_dq.launches_by_variant[variant] += 1
     return dq
 
 
@@ -367,9 +375,10 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True,
     return dk, dv
 
 
-#: Kernel launches since the last reset (ops.reset_launch_counts()); K4 also
-#: by variant.
+#: Kernel launches since the last reset (ops.reset_launch_counts()), in all
+#: and by variant.
 flash_backward_dq.launches = 0
+flash_backward_dq.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 flash_backward_dkv.launches = 0
 flash_backward_dkv.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 

@@ -1,15 +1,20 @@
 """K1: tiled matmul with an f32 accumulator, as a hand-written CUDA kernel.
 
-Port of ``tpu_cc_manager/ops/matmul.py``. ``tiled_matmul`` launches the
+Port of ``tpu_cc_manager/ops/matmul.py``. ``tiled_matmul`` launches a
 kernel in ``csrc/matmul.cu`` for CUDA tensors and runs :func:`tiled_matmul_plain`
 (the same blocked algorithm in plain PyTorch) for CPU tensors, nothing else:
-a CUDA input either launches the kernel or raises. The matmul smoke's
+a CUDA input either launches a kernel or raises. The matmul smoke's
 ``--kernel cuda`` mode (the port of ``--kernel pallas``) goes through it.
 
+The operands' dtype picks the kernel before the launch (:func:`_variant`):
+``"sm90"`` (wgmma fed by TMA) for bf16, ``"simt"`` (f32 FMAs on the CUDA
+cores, no TF32 rounding) for f32.
+
 The block arguments keep the JAX package's meaning (clamped to the shape,
-and they must divide it, else ``ValueError``). The CUDA kernel is compiled
-for one tile, :data:`KERNEL_BLOCKS`; on a CUDA tensor the (clamped) blocks
-must equal it. A per-variant tile table and sweep are later work.
+and they must divide it, else ``ValueError``). Each CUDA kernel is compiled
+for one tile, :data:`KERNEL_BLOCKS` (bf16) or :data:`KERNEL_BLOCKS_F32`; on a
+CUDA tensor the (clamped) blocks must equal it. A per-variant tile table and
+sweep are later work.
 """
 
 from __future__ import annotations
@@ -18,10 +23,17 @@ import torch
 
 from tpu_cc_manager_torch.ops import _build
 
-#: The bf16 tensor-core kernel's (block_m, block_n, block_k) tile.
-KERNEL_BLOCKS = (128, 128, 32)
+#: The bf16 wgmma kernel's (block_m, block_n, block_k) tile.
+KERNEL_BLOCKS = (128, 128, 64)
 #: The f32 SIMT kernel's tile (f32 operands).
 KERNEL_BLOCKS_F32 = (64, 64, 16)
+VARIANTS = ("sm90", "simt")
+
+
+def _variant(dtype) -> str:
+    """Which K1 kernel takes operands of ``dtype``: ``"sm90"`` for bf16,
+    ``"simt"`` for f32."""
+    return "sm90" if dtype == torch.bfloat16 else "simt"
 
 
 def default_blocks(variant: str | None, size: int) -> tuple[int, int, int]:
@@ -89,28 +101,37 @@ def _launch(a, b, blocks, out_dtype) -> torch.Tensor:
         raise ValueError(f"out_dtype must be f32 or bf16 (got {out_dtype})")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("tiled_matmul needs row-major contiguous operands")
-    tile = KERNEL_BLOCKS if a.dtype == torch.bfloat16 else KERNEL_BLOCKS_F32
+    variant = _variant(a.dtype)
+    tile = KERNEL_BLOCKS if variant == "sm90" else KERNEL_BLOCKS_F32
     if tuple(blocks) != tile:
         raise ValueError(
             f"the CUDA kernel is compiled for blocks {tile}; got {tuple(blocks)} "
             "(shapes must be multiples of that tile)"
         )
+    # TMA (sm90) reads from 16-byte aligned bases; its row strides, K * 2
+    # and N * 2 bytes, are multiples of 16 already.
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("operands must be 16-byte aligned")
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     lib = _build.load("matmul")
-    entry = lib.tcc_matmul_bf16 if a.dtype == torch.bfloat16 else lib.tcc_matmul_f32
+    out_bf16 = int(out_dtype == torch.bfloat16)
     with torch.cuda.device(a.device):  # the C entry launches on the current device
-        rc = entry(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, K, N, N,
-            int(out_dtype == torch.bfloat16), torch.cuda.current_stream(a.device).cuda_stream,
-        )
-    _build.check(rc, "tcc_matmul")
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        if variant == "sm90":
+            rc = lib.tcc_matmul_sm90(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                                     out_bf16, stream)
+        else:
+            rc = lib.tcc_matmul_f32(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                                    K, N, N, out_bf16, stream)
+    _build.check(rc, f"tcc_matmul ({variant})")
     tiled_matmul.launches += 1
+    tiled_matmul.launches_by_variant[variant] += 1
     return out
 
 
-#: Kernel launches since the last reset (ops.reset_launch_counts()).
+#: Kernel launches since the last reset (ops.reset_launch_counts()), in all
+#: and by variant.
 tiled_matmul.launches = 0
+tiled_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)

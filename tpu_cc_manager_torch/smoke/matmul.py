@@ -141,4 +141,5 @@ def run(size: int | None = None, iters: int | None = None, seed: int = 0,
         "ident_err": ident_err,
         "rowsum_rel_err": rowsum_rel_err,
         "kernel_launches": ops.launch_counts(),
+        "kernel_launches_by_variant": ops.variant_launch_counts(),
     }
