@@ -34,19 +34,35 @@ counts at 0 just before it and read just after:
    32/8, vocab 128256, bf16, batch 4): all three oracles and K2 launches;
    the same smoke with the cache off-by-one injected, which the transcript
    oracle must catch; then ``entry()``'s tiny forward;
-7. Llama-3.2-1B training at full width (16 layers, dim 2048, GQA 32/8,
-   vocab 128256; f32 parameters, bf16 compute, flash attention, AdamW):
+7. the parallel layer, then Llama-3.2-1B training on it: ``bootstrap()``
+   must be the single-process no-op, ``make_mesh(MeshSpec())`` builds a
+   one-rank NCCL mesh (its five sizes printed) and ``verify_dcn_mesh`` must
+   hold; then the 1B model at full width (16 layers, dim 2048, GQA 32/8,
+   vocab 128256; f32 parameters, bf16 compute, flash attention, AdamW)
+   through ``make_llama_train_state(cfg, mesh)`` (FSDP2 at one rank):
    8 steps on one fixed batch of 4 x 1024 tokens; the loss must be finite
    and strictly decreasing, each step must launch K2, K3 and K4 once per
    layer (all on their sm90 kernels), the first 3 steps rerun on
    fresh state must repeat every printed digit of the loss, and the flash
    path's gradient must match the einsum path's on the same weights;
-   ms/step, tokens/s, MFU, peak memory and one profiled step;
-8. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+   ms/step (beside the one-device step's time before FSDP2), tokens/s, MFU,
+   peak memory and one profiled step;
+8. the ResNet-50 training smoke through the agent's runner at full width
+   (224², 1000 classes, batch 64, bf16 activations, f32 parameters): ok,
+   on the card, valid timing and a falling loss; images/s, s/step, MFU and
+   the FLOPs it counted; then one more step in this process under
+   ``torch.profiler``: device time by kernel group and the idle share;
+9. a checkpoint round trip on the ResNet-50 train state with cuDNN
+   deterministic: 2 steps, save, 2 more steps (losses A); a fresh state
+   from another seed, restored, must equal the saved one in every
+   parameter, buffer, momentum and the step, and its 2 steps (losses B)
+   must repeat A bit for bit; bytes written, save and restore seconds;
+10. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
-   K3 and K4 are checked in phases 3-4 but run on no path), then the
-   ``nvidia-smi`` line;
-9. last line ``{"ok": true, "device": {...}}``.
+   K3 and K4 are checked in phases 3-4 but run on no path; the ResNet path
+   runs none of K1-K4: its convolutions are cuDNN's, as the JAX package's
+   are XLA's), then the ``nvidia-smi`` line;
+11. last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without CUDA, or run
 outside the repository, it fails at once.
@@ -75,6 +91,12 @@ TRANSCRIPT_LIMIT = 1e-2  # the Llama smoke's argmax margin (smoke/llama_infer.py
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
 TRAIN_GRAD_LIMIT = 5e-2
 DETERMINISM_STEPS = 3  # rerun on fresh state; the losses must repeat
+# The 1B step on one device before the state was sharded with FSDP2 (one
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's.
+ONE_DEVICE_STEP_MS = 336.51
+FIRST_LOSS = 12.261904  # the 1B step's first loss: same weights, same forward
+RESNET_BATCH = 64
+CHECKPOINT_STEPS = 2  # steps before the save, and after it on each side
 
 
 def fail(message: str) -> None:
@@ -393,27 +415,40 @@ def grad_rel_err(got: dict, want: dict, names) -> float:
 
 
 # Device-time groups of a training step, by kernel name (first match wins).
-KERNEL_GROUPS = (
+LLAMA_KERNEL_GROUPS = (
     ("K2 flash forward", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("K3 flash dQ", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("K4 flash dK/dV", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sgemm")),
     ("AdamW (foreach)", ("multi_tensor_apply",)),
     ("softmax", ("softmax",)),
+    ("FSDP2 collectives and copies", ("nccl", "chunk_cat", "split_with_sizes",
+                                      "catarraybatchedcopy")),
+)
+RESNET_KERNEL_GROUPS = (
+    ("convolution (cuDNN)", ("xmma", "conv", "cudnn", "implicit_gemm", "dgrad", "wgrad",
+                             "fprop", "nhwc", "nchw")),
+    # cuDNN runs some 1x1 convolutions as GEMMs; the classifier is one too.
+    ("GEMM kernels (1x1 convolutions, the classifier)", ("gemm", "nvjet")),
+    ("batch norm statistics (reductions)", ("reduce_kernel",)),
+    ("SGD (foreach)", ("multi_tensor_apply",)),
+    ("max pool", ("max_pool",)),
+    ("elementwise (batch norm normalise, ReLU, casts, residual adds)", ("elementwise",)),
+    ("DDP (NCCL)", ("nccl",)),
 )
 
 
-def profile_step(torch, step, state, tokens) -> None:
-    """One more train step under torch.profiler (neither timed nor counted
-    with the others): device time by kernel group and the top kernels, and
-    the device's busy share of the step's wall time."""
+def profile_step(torch, label: str, run_step, groups) -> None:
+    """``run_step()`` (one train step that waits for its loss) under
+    torch.profiler, neither timed nor counted with the others: device time
+    by kernel group and the top kernels, and the device's busy share of the
+    step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, loss = step(state, tokens)
-        float(loss)
+        run_step()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_kernel = {}
     for evt in prof.key_averages():
@@ -423,22 +458,45 @@ def profile_step(torch, step, state, tokens) -> None:
                 and evt.self_device_time_total > 0):
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
     busy = sum(by_kernel.values())
-    groups = {}
+    by_group = {}
     for name, ms in by_kernel.items():
-        group = next((g for g, keys in KERNEL_GROUPS
+        group = next((g for g, keys in groups
                       if any(key in name.lower() for key in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
-    say(f"train profile (one extra step): wall_ms={wall_ms:.2f} device_busy_ms={busy:.2f} "
+        by_group[group] = by_group.get(group, 0.0) + ms
+    say(f"{label} profile (one extra step): wall_ms={wall_ms:.2f} device_busy_ms={busy:.2f} "
         f"idle_share={1 - busy / wall_ms:.4f}; by group ms: "
-        + json.dumps({g: round(ms, 3) for g, ms in sorted(groups.items(), key=lambda x: -x[1])}))
+        + json.dumps({g: round(ms, 3) for g, ms in sorted(by_group.items(), key=lambda x: -x[1])}))
     for name, ms in sorted(by_kernel.items(), key=lambda x: -x[1])[:12]:
-        say(f"train profile kernel: {ms:9.3f} ms  {name[:140]}")
+        say(f"{label} profile kernel: {ms:9.3f} ms  {name[:140]}")
 
 
-def train_llama_1b(torch, peaks) -> dict:
-    """The training slice's main path at Llama-3.2-1B full width: 8 AdamW
-    steps on one fixed batch with K2/K3/K4 in every layer, then the flash
-    path's gradient against the einsum path's on the same weights."""
+def check_parallel_layer():
+    """bootstrap, make_mesh and verify_dcn_mesh on this one card; returns
+    the one-rank mesh."""
+    import torch.distributed as dist
+
+    from tpu_cc_manager_torch.parallel.distributed import bootstrap, verify_dcn_mesh
+    from tpu_cc_manager_torch.parallel.mesh import MeshSpec, make_mesh, mesh_sizes
+
+    info = bootstrap()
+    if info != {"processes": 1, "initialized": False}:
+        fail(f"bootstrap() in one process returned {info}, want the single-process no-op")
+    mesh = make_mesh(MeshSpec())
+    t0 = time.perf_counter()
+    verified = verify_dcn_mesh(mesh)  # the first collective on each data axis's group
+    say(f"parallel: bootstrap {info}; mesh {mesh_sizes(mesh)} on {mesh.device_type} "
+        f"(backend {dist.get_backend()}, world {dist.get_world_size()}); "
+        f"verify_dcn_mesh {verified} in {time.perf_counter() - t0:.2f}s")
+    if "nccl" not in dist.get_backend() or not verified:
+        fail("the one-rank mesh is not on NCCL, or verify_dcn_mesh failed")
+    return mesh
+
+
+def train_llama_1b(torch, peaks, mesh) -> dict:
+    """The training slice's main path at Llama-3.2-1B full width on the
+    mesh: 8 AdamW steps on one fixed batch with K2/K3/K4 in every layer,
+    then the flash path's gradient against the einsum path's on the same
+    weights."""
     import dataclasses
     import gc
     import statistics
@@ -464,8 +522,8 @@ def train_llama_1b(torch, peaks) -> dict:
     def run(steps: int):
         """``steps`` steps from a fresh state (seed 0): losses, seconds,
         the state and the step function."""
-        state = make_llama_train_state(cfg, device="cuda", seed=0)
-        step = make_llama_train_step(cfg)
+        state, shardings = make_llama_train_state(cfg, mesh, seed=0)
+        step = make_llama_train_step(cfg, mesh, shardings)
         losses, seconds = [], []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -478,7 +536,7 @@ def train_llama_1b(torch, peaks) -> dict:
     losses, seconds, state, step = run(TRAIN_STEPS)
     launches = {**ops.launch_counts(), **flat_variants(ops.variant_launch_counts())}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    profile_step(torch, step, state, tokens)
+    profile_step(torch, "train", lambda: float(step(state, tokens)[1]), LLAMA_KERNEL_GROUPS)
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -508,7 +566,9 @@ def train_llama_1b(torch, peaks) -> dict:
     say(f"train Llama-3.2-1B (params {cfg.param_count()}, f32 master weights, bf16 compute, "
         f"flash, batch {TRAIN_BATCH}x{TRAIN_SEQ}, AdamW lr 3e-4 wd 0.01): losses "
         f"{[round(x, 6) for x in losses]}")
-    say(f"train: step_ms median(steps 2-{TRAIN_STEPS})={ms:.2f} first={1e3 * seconds[0]:.2f} "
+    say(f"train: first loss {losses[0]:.6f} (one-device step: {FIRST_LOSS:.6f}); step_ms "
+        f"median(steps 2-{TRAIN_STEPS}) on the FSDP2 mesh={ms:.2f} (one-device step: "
+        f"{ONE_DEVICE_STEP_MS} on an H100 80GB HBM3 at 700 W) first={1e3 * seconds[0]:.2f} "
         f"tokens_per_sec={n_tok / (ms / 1e3):.1f} mfu={mfu:.4f} (flops/step {flops:.4e} = "
         f"6*{mm_params}*{n_tok} + attention 3*{L}*2*2*B*H*D*S(S+1)/2; bf16 peak) "
         f"max_memory_allocated_gb={peak_gb:.2f} launches={launches}")
@@ -545,6 +605,109 @@ def train_llama_1b(torch, peaks) -> dict:
     if not rel < TRAIN_GRAD_LIMIT:
         fail(f"1B flash-path gradient differs from the einsum path by {rel:.4e}")
     return {"launches": launches, "losses": losses, "step_ms": ms, "grad_rel_err": rel}
+
+
+def resnet_smoke(torch) -> None:
+    """The ResNet-50 smoke through the agent's runner, then one more step
+    of the same state in this process under torch.profiler."""
+    from tpu_cc_manager_torch.parallel.mesh import make_mesh
+    from tpu_cc_manager_torch.smoke import resnet_train
+    from tpu_cc_manager_torch.smoke.runner import SmokeError, run_workload_subprocess
+
+    t0 = time.perf_counter()
+    try:
+        res = run_workload_subprocess("resnet", timeout_s=600, extra_args=[
+            "--size", "resnet50", "--batch", str(RESNET_BATCH)])
+    except SmokeError as e:
+        fail(f"resnet smoke: {e}")
+    wall_s = time.perf_counter() - t0
+    say(f"resnet smoke: child wall_s={wall_s:.2f} " + json.dumps({k: res.get(k) for k in (
+        "model", "backend", "device_name", "devices", "batch", "timing_valid",
+        "images_per_sec", "seconds_per_step", "mfu", "flops_per_step", "loss_first",
+        "loss_last")}))
+    if not (res["ok"] and res["backend"] == "cuda" and res["timing_valid"]
+            and res["loss_last"] < res["loss_first"]):
+        fail(f"resnet smoke failed its oracle or ran off the card: {res}")
+
+    mesh = make_mesh(resnet_train.MESH_SPEC)
+    state = resnet_train.make_resnet_train_state("resnet50", mesh, seed=0)
+    step = resnet_train.make_resnet_train_step(mesh)
+    images, labels = resnet_batch(torch)
+    for _ in range(3):  # warm: cuDNN's algorithm choice, the allocator
+        step(state, images, labels)
+    profile_step(torch, "resnet", lambda: float(step(state, images, labels)[1]),
+                 RESNET_KERNEL_GROUPS)
+
+
+def resnet_batch(torch):
+    """The smoke's batch: 64 images of 224² and their labels from seed 0."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randn((RESNET_BATCH, 224, 224, 3), generator=gen, device="cuda")
+    return images, torch.randint(0, 1000, (RESNET_BATCH,), generator=gen, device="cuda")
+
+
+def checkpoint_round_trip(torch) -> None:
+    """Train, save, train on; restore into a fresh state from another seed
+    and train on: the two continuations must agree bit for bit."""
+    import pathlib
+    import shutil
+
+    from tpu_cc_manager_torch.parallel.checkpoint import TrainCheckpointer
+    from tpu_cc_manager_torch.parallel.mesh import make_mesh
+    from tpu_cc_manager_torch.smoke import resnet_train
+
+    directory = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(directory, ignore_errors=True)
+    # cuDNN's weight-gradient algorithms may otherwise use atomics.
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        mesh = make_mesh(resnet_train.MESH_SPEC)
+        step = resnet_train.make_resnet_train_step(mesh)
+        images, labels = resnet_batch(torch)
+        state = resnet_train.make_resnet_train_state("resnet50", mesh, seed=0)
+        for _ in range(CHECKPOINT_STEPS):
+            step(state, images, labels)
+
+        def snapshot(s) -> dict:
+            out = {f"param {n}": p.detach().clone() for n, p in s.model.named_parameters()}
+            out.update({f"buffer {n}": b.clone() for n, b in s.model.named_buffers()})
+            out.update({f"momentum {n}": s.optimizer.state[p]["momentum_buffer"].clone()
+                        for n, p in s.model.named_parameters()})
+            return out
+
+        ckpt = TrainCheckpointer(str(directory))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(state.step, state)
+        save_s = time.perf_counter() - t0
+        saved, saved_step = snapshot(state), state.step
+        nbytes = sum(f.stat().st_size for f in (directory / str(saved_step)).rglob("*")
+                     if f.is_file())
+        losses_a = [float(step(state, images, labels)[1]) for _ in range(CHECKPOINT_STEPS)]
+        del state
+
+        fresh = resnet_train.make_resnet_train_state("resnet50", mesh, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored, restored_step = snapshot(fresh), fresh.step
+        differ = [k for k in saved if not torch.equal(saved[k], restored[k])]
+        losses_b = [float(step(fresh, images, labels)[1]) for _ in range(CHECKPOINT_STEPS)]
+        ckpt.close()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        shutil.rmtree(directory, ignore_errors=True)
+    say(f"checkpoint (ResNet-50 state after {saved_step} steps): {nbytes} bytes written, "
+        f"save_s={save_s:.3f} restore_s={restore_s:.3f}; restored step {restored_step}, "
+        f"{len(saved) - len(differ)}/{len(saved)} tensors equal; losses after the save "
+        f"{losses_a}, after the restore {losses_b}: "
+        f"{'bit-equal' if losses_a == losses_b else 'DIFFERENT'}")
+    if differ or restored_step != saved_step or losses_a != losses_b:
+        fail(f"checkpoint round trip: tensors differ {differ[:5]}, step {restored_step} vs "
+             f"{saved_step}, losses {losses_a} vs {losses_b}")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -683,10 +846,19 @@ def main(argv: list[str] | None = None) -> int:
     del logits, forward, example
     torch.cuda.empty_cache()
 
-    # --- 7. Llama-3.2-1B training, full width -----------------------------------
-    paths["1b training"] = train_llama_1b(torch, peaks)["launches"]
+    # --- 7. the parallel layer, Llama-3.2-1B training on it ----------------------
+    mesh = check_parallel_layer()
+    paths["1b training"] = train_llama_1b(torch, peaks, mesh)["launches"]
 
-    # --- 8. kernel summary ------------------------------------------------------
+    # --- 8. ResNet-50 smoke -----------------------------------------------------
+    resnet_smoke(torch)
+    torch.cuda.empty_cache()
+
+    # --- 9. checkpoint round trip -------------------------------------------------
+    checkpoint_round_trip(torch)
+    torch.cuda.empty_cache()
+
+    # --- 10. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -712,7 +884,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 9. last line -------------------------------------------------------------
+    # --- 11. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

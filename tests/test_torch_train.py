@@ -1,7 +1,8 @@
 """The port's train step (tpu_cc_manager_torch/parallel/train.py) against JAX's.
 
 The JAX train state is built on a one-device CPU mesh and its parameters are
-carried into the port with ``params_from_jax``; tokens come from numpy. With
+carried into the port's state on a one-rank mesh (FSDP2 at one rank) with
+``params_from_jax``; tokens come from numpy. With
 use_flash the JAX side runs its Pallas forward and backward in interpret
 mode and the port its autograd Function on the plain versions of K2/K3/K4.
 Tolerances are tests/test_models.py's own (1e-4), with the loss at 1e-5.
@@ -13,12 +14,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
 
 from tpu_cc_manager.models import llama as jllama
 from tpu_cc_manager.parallel import train as jtrain
 from tpu_cc_manager.parallel.mesh import MeshSpec, make_mesh
 from tpu_cc_manager_torch.models import llama as tllama
 from tpu_cc_manager_torch.models.convert import params_from_jax
+from tpu_cc_manager_torch.parallel import mesh as tmesh
 from tpu_cc_manager_torch.parallel import train as ttrain
 
 LR = 3e-4
@@ -26,6 +29,10 @@ LR = 3e-4
 
 def tokens_np(shape, vocab, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, shape, dtype=np.int64)
+
+
+def cpu_mesh():
+    return tmesh.make_mesh(tmesh.MeshSpec(), device_type="cpu")
 
 
 def np_tree(tree):
@@ -70,16 +77,20 @@ def test_one_train_step_matches_jax(use_flash):
     assert abs(float(jstep_loss) - float(jloss)) < 1e-6
     jparams = params_from_jax(np_tree(jnext.params), tcfg, "cpu")
 
-    state = ttrain.make_llama_train_state(tcfg, device="cpu", learning_rate=LR)
-    state.model.load_state_dict(params_from_jax(params0, tcfg, "cpu"), strict=True)
-    state, loss = ttrain.make_llama_train_step(tcfg)(state, torch.from_numpy(tokens))
+    port_mesh = cpu_mesh()
+    state, shardings = ttrain.make_llama_train_state(tcfg, port_mesh, learning_rate=LR)
+    set_model_state_dict(state.model, params_from_jax(params0, tcfg, "cpu"),
+                         options=StateDictOptions(full_state_dict=True, strict=True))
+    state, loss = ttrain.make_llama_train_step(tcfg, port_mesh, shardings)(
+        state, torch.from_numpy(tokens))
     assert state.step == 1
     assert abs(float(loss) - float(jloss)) < 1e-5
 
-    named = dict(state.model.named_parameters())
+    named = {n: p.full_tensor() for n, p in state.model.named_parameters()}
+    grads = {n: p.grad.full_tensor() for n, p in state.model.named_parameters()}
     assert set(named) == set(jgrads) == set(jparams)
     for name, p in named.items():
-        np.testing.assert_allclose(p.grad.numpy(), jgrads[name].numpy(), atol=1e-4,
+        np.testing.assert_allclose(grads[name].numpy(), jgrads[name].numpy(), atol=1e-4,
                                    rtol=1e-4, err_msg=f"grad {name}")
         # Adam's first step moves an entry by lr * g / (|g| + eps): about
         # +-lr wherever |g| is above the gradients' own error, so there the
@@ -96,8 +107,9 @@ def test_train_step_decreases_loss():
     """tests/test_parallel.py's oracle on the port: bf16 compute, the flash
     path (plain K2/K3/K4 on the CPU), 4 steps on one batch."""
     cfg = tllama.LlamaConfig.tiny(use_flash=True)
-    state = ttrain.make_llama_train_state(cfg, device="cpu", seed=0)
-    step = ttrain.make_llama_train_step(cfg)
+    mesh = cpu_mesh()
+    state, shardings = ttrain.make_llama_train_state(cfg, mesh, seed=0)
+    step = ttrain.make_llama_train_step(cfg, mesh, shardings)
     tokens = torch.from_numpy(tokens_np((8, 33), cfg.vocab_size, seed=2))
     losses = []
     for _ in range(4):
@@ -122,9 +134,10 @@ def test_remat_gives_the_same_gradients():
 
 def test_train_step_refuses_another_config():
     cfg = tllama.LlamaConfig.tiny()
-    state = ttrain.make_llama_train_state(cfg, device="cpu")
+    mesh = cpu_mesh()
+    state, shardings = ttrain.make_llama_train_state(cfg, mesh)
     with pytest.raises(ValueError, match="config"):
-        ttrain.make_llama_train_step(tllama.LlamaConfig.tiny(remat=True))(
+        ttrain.make_llama_train_step(tllama.LlamaConfig.tiny(remat=True), mesh, shardings)(
             state, torch.zeros((1, 9), dtype=torch.long))
 
 
@@ -133,4 +146,4 @@ def test_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the state is built there")
     with pytest.raises(RuntimeError, match="CUDA"):
-        ttrain.make_llama_train_state(tllama.LlamaConfig.tiny(), device="cuda")
+        ttrain.make_llama_train_state(tllama.LlamaConfig.tiny(), tmesh.make_mesh())

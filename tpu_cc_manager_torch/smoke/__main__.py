@@ -1,6 +1,6 @@
 """Subprocess entry for the port's smoke workloads: one JSON result line last.
 
-``python -m tpu_cc_manager_torch.smoke --workload {matmul,llama}`` with the
+``python -m tpu_cc_manager_torch.smoke --workload {matmul,llama,resnet}`` with the
 JAX entry's flags; ``--kernel {torch,cuda}`` is the port of ``{xla,pallas}``,
 ``--device`` (default ``cuda``) picks the card or, when asked, the CPU, and
 ``--profile-dir`` records a ``torch.profiler`` trace.
@@ -19,12 +19,14 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--workload", required=True)
     p.add_argument("--size", default=None,
                    help="problem-size override: an integer for matmul, a named "
-                   "config for llama (e.g. tiny, 500m, llama3-8b)")
+                   "config for llama (e.g. tiny, 500m, llama3-8b) or resnet (tiny, "
+                   "resnet50)")
     p.add_argument("--kernel", default=None, choices=["torch", "cuda"],
                    help="matmul only: 'cuda' runs the hand-written K1 kernel "
                    "(ops/matmul.py), 'torch' PyTorch's own matmul")
     p.add_argument("--batch", type=int, default=None,
-                   help="llama only: batch override")
+                   help="llama and resnet only: batch override (resnet: the global "
+                   "batch)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run (default: the card; a missing card fails)")
     p.add_argument("--profile-dir", default=None,
@@ -48,8 +50,8 @@ def main(argv: list[str] | None = None) -> int:
             return usage_error("--kernel only applies to the matmul workload")
         kwargs["kernel"] = args.kernel
     if args.batch is not None:
-        if args.workload != "llama":
-            return usage_error("--batch only applies to the llama workload")
+        if args.workload not in ("llama", "resnet"):
+            return usage_error("--batch only applies to the llama and resnet workloads")
         if args.batch < 1:
             return usage_error(f"--batch must be positive (got {args.batch})")
         kwargs["batch"] = args.batch

@@ -29,6 +29,7 @@ log = logging.getLogger(__name__)
 WORKLOADS = {
     "matmul": "tpu_cc_manager_torch.smoke.matmul",
     "llama": "tpu_cc_manager_torch.smoke.llama_infer",
+    "resnet": "tpu_cc_manager_torch.smoke.resnet_train",
 }
 
 _REPO_ROOT = str(pathlib.Path(__file__).resolve().parents[2])
