@@ -29,10 +29,13 @@ counts at 0 just before it and read just after:
    D = 128, beside SDPA's backward alone, each also by device time from
    ``torch.profiler``;
 5. the matmul smoke through the agent's runner with ``--kernel torch`` and
-   ``--kernel cuda`` (the latter must show K1 launches, all on "sm90");
+   ``--kernel cuda`` (the latter must show K1 launches, all on "sm90"); the
+   torch path must report ``devices`` = ``torch.cuda.device_count()`` and
+   each card's oracles, the cuda path one card;
 6. the Llama-3-8B inference smoke at full width (32 layers, dim 4096, GQA
-   32/8, vocab 128256, bf16, batch 4): all three oracles and K2 launches;
-   the same smoke with the cache off-by-one injected, which the transcript
+   32/8, vocab 128256, bf16, batch 4): all three oracles and K2 launches on
+   every visible card (``devices`` and each card's oracles printed); the
+   same smoke with the cache off-by-one injected, which the transcript
    oracle must catch; then ``entry()``'s tiny forward;
 7. the parallel layer, then Llama-3.2-1B training on it: ``bootstrap()``
    must be the single-process no-op, ``make_mesh(MeshSpec())`` builds a
@@ -48,21 +51,36 @@ counts at 0 just before it and read just after:
    ms/step (beside the one-device step's time before FSDP2), tokens/s, MFU,
    peak memory and one profiled step;
 8. the ResNet-50 training smoke through the agent's runner at full width
-   (224², 1000 classes, batch 64, bf16 activations, f32 parameters): ok,
-   on the card, valid timing and a falling loss; images/s, s/step, MFU and
-   the FLOPs it counted; then one more step in this process under
+   (224², 1000 classes, batch 64 per card, bf16 activations, f32
+   parameters): ok, one rank on every visible card (``devices`` and each
+   rank's loss printed), valid timing and a falling loss; images/s, s/step,
+   MFU and the FLOPs it counted; then one more step in this process under
    ``torch.profiler``: device time by kernel group and the idle share;
 9. a checkpoint round trip on the ResNet-50 train state with cuDNN
    deterministic: 2 steps, save, 2 more steps (losses A); a fresh state
    from another seed, restored, must equal the saved one in every
    parameter, buffer, momentum and the step, and its 2 steps (losses B)
    must repeat A bit for bit; bytes written, save and restore seconds;
-10. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+10. ring attention (``ops/ring_attention.py``): each rank's forward and
+   backward code run on this card by n = 2 and n = 4 threads, one per
+   virtual rank, each on its own CUDA stream, exchanging K/V through an
+   in-memory ring with a barrier in place of the process group's
+   ``batch_isend_irecv``; bf16, GQA 32/8, D = 64, at the Llama-3.2-1B
+   training shape (4, 32, 1024, 64) and a long-context (1, 32, 8192, 64).
+   The ranks' outputs, joined, must match the plain reference attention on
+   the whole sequence with K/V repeated (f32, on the same bf16 inputs)
+   within K2's bf16 tolerance, and dq, dk, dv its autograd gradient within
+   K3/K4's; the ring launches none of K1-K4. Each rank's forward and
+   backward ms (CUDA events on its stream, waits included) and the ring's
+   device time over all ranks (``torch.profiler``), beside K2 + K3 + K4 and
+   SDPA on the whole sequence;
+11. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
-   K3 and K4 are checked in phases 3-4 but run on no path; the ResNet path
-   runs none of K1-K4: its convolutions are cuDNN's, as the JAX package's
-   are XLA's), then the ``nvidia-smi`` line;
-11. last line ``{"ok": true, "device": {...}}``.
+   K3 and K4 are checked in phases 3-4 but run on no path; the ResNet and
+   ring paths run none of K1-K4: the ResNet's convolutions are cuDNN's, as
+   the JAX package's are XLA's, and the ring's blocks are plain PyTorch, as
+   the JAX ring's are XLA einsums), then the ``nvidia-smi`` line;
+12. last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without CUDA, or run
 outside the repository, it fails at once.
@@ -97,6 +115,12 @@ ONE_DEVICE_STEP_MS = 336.51
 FIRST_LOSS = 12.261904  # the 1B step's first loss: same weights, same forward
 RESNET_BATCH = 64
 CHECKPOINT_STEPS = 2  # steps before the save, and after it on each side
+# Ring attention: virtual ranks, and (B, H, S, D) at the 1B model's heads
+# (GQA 32/8, D = 64): its training shape and a long context.
+RING_SIZES = (2, 4)
+RING_SHAPES = ((4, 32, 1024, 64), (1, 32, 8192, 64))
+RING_KV_HEADS = 8
+RING_BARRIER_TIMEOUT_S = 300
 
 
 def fail(message: str) -> None:
@@ -407,6 +431,14 @@ def flat_variants(by_variant: dict) -> dict:
     return {f"{k}/{v}": n for k, counts in by_variant.items() for v, n in counts.items()}
 
 
+def check_devices(label: str, res: dict, want: int) -> None:
+    """A smoke result must cover ``want`` cards, each one passing."""
+    cards = res.get("per_device") or []
+    if res["devices"] != want or len(cards) != want or not all(c["ok"] for c in cards):
+        fail(f"{label}: devices={res['devices']} with {len(cards)} per-card results, want "
+             f"{want}, each passing")
+
+
 def grad_rel_err(got: dict, want: dict, names) -> float:
     """||got - want|| / ||want|| over the named gradients taken together."""
     num = sum(float((got[n].float() - want[n].float()).pow(2).sum()) for n in names)
@@ -617,7 +649,7 @@ def resnet_smoke(torch) -> None:
     t0 = time.perf_counter()
     try:
         res = run_workload_subprocess("resnet", timeout_s=600, extra_args=[
-            "--size", "resnet50", "--batch", str(RESNET_BATCH)])
+            "--size", "resnet50", "--batch", str(RESNET_BATCH * torch.cuda.device_count())])
     except SmokeError as e:
         fail(f"resnet smoke: {e}")
     wall_s = time.perf_counter() - t0
@@ -625,6 +657,8 @@ def resnet_smoke(torch) -> None:
         "model", "backend", "device_name", "devices", "batch", "timing_valid",
         "images_per_sec", "seconds_per_step", "mfu", "flops_per_step", "loss_first",
         "loss_last")}))
+    say(f"resnet smoke: per_device={json.dumps(res['per_device'])}")
+    check_devices("resnet smoke", res, torch.cuda.device_count())
     if not (res["ok"] and res["backend"] == "cuda" and res["timing_valid"]
             and res["loss_last"] < res["loss_first"]):
         fail(f"resnet smoke failed its oracle or ran off the card: {res}")
@@ -710,6 +744,164 @@ def checkpoint_round_trip(torch) -> None:
              f"{saved_step}, losses {losses_a} vs {losses_b}")
 
 
+class ThreadRing:
+    """Virtual rank ``index`` of ``size`` threads on one card, in place of
+    ``GroupRing``'s process group: ``shift`` posts this rank's tensors with
+    an event on its stream, meets the others at the barrier, copies the
+    previous rank's on its own stream once their event has passed, and
+    meets them again, so no rank posts the next hop before every rank has
+    taken this one."""
+
+    def __init__(self, index: int, size: int, board: list, barrier):
+        self.index, self.size, self.board, self.barrier = index, size, board, barrier
+
+    def shift(self, tensors):
+        import torch
+
+        stream = torch.cuda.current_stream()
+        posted = torch.cuda.Event()
+        posted.record(stream)
+        self.board[self.index] = (list(tensors), posted)
+        self.barrier.wait()
+        sent, sent_event = self.board[(self.index - 1) % self.size]
+        stream.wait_event(sent_event)
+        received = [t.clone() for t in sent]
+        for t in sent:
+            t.record_stream(stream)  # the sender may free it once we are past
+        self.barrier.wait()
+        return received
+
+
+def run_ring(torch, q, k, v, g, streams):
+    """The ring's forward and backward on one thread per stream, one virtual
+    rank each holding its chunk of the sequence: the joined (out, dq, dk,
+    dv), and each rank's forward and backward ms from CUDA events on its
+    stream."""
+    import threading
+
+    from tpu_cc_manager_torch.ops.ring_attention import ring_backward, ring_forward
+
+    n = len(streams)
+    c = q.shape[2] // n
+    chunks = [[t[:, :, i * c : (i + 1) * c].contiguous() for t in (q, k, v, g)]
+              for i in range(n)]
+    board = [None] * n
+    barrier = threading.Barrier(n, timeout=RING_BARRIER_TIMEOUT_S)
+    results, errors = [None] * n, [None] * n
+
+    def rank(i: int) -> None:
+        try:
+            with torch.cuda.stream(streams[i]):
+                ring = ThreadRing(i, n, board, barrier)
+                qi, ki, vi, gi = chunks[i]
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                events[0].record()
+                out, lse = ring_forward(qi, ki, vi, ring)
+                events[1].record()
+                grads = ring_backward(qi, ki, vi, out, lse, gi, ring)
+                events[2].record()
+                results[i] = (out, *grads, events)
+        except BaseException as e:  # a failed rank must not leave the others waiting
+            errors[i] = e
+            barrier.abort()
+
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    threads = [threading.Thread(target=rank, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    if any(e is not None for e in errors):
+        # The first rank to fail broke the barrier for the others.
+        fail(f"ring n={n}: ranks failed: {[repr(e) for e in errors]}")
+    joined = [torch.cat([r[j] for r in results], dim=2) for j in range(4)]
+    fwd_ms = [r[4][0].elapsed_time(r[4][1]) for r in results]
+    bwd_ms = [r[4][1].elapsed_time(r[4][2]) for r in results]
+    return joined, fwd_ms, bwd_ms
+
+
+def check_ring(torch) -> None:
+    """Phase 10: ring attention's per-rank code on this card (see the module
+    docstring); the launch counts must stay 0 while it runs."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from tpu_cc_manager_torch import ops
+    from tpu_cc_manager_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for B, H, S, D in RING_SHAPES:
+        G = H // RING_KV_HEADS
+        q, g = (torch.randn((B, H, S, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+                for _ in range(2))
+        k, v = (torch.randn((B, RING_KV_HEADS, S, D), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        # The plain reference on the whole sequence, K/V repeated, in f32 on
+        # the same bf16 values; its autograd gradient.
+        leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+        ref = fa.reference_attention(leaves[0], *(t.repeat_interleave(G, dim=1)
+                                                  for t in leaves[1:]))
+        wants = [ref.detach(), *torch.autograd.grad(ref, leaves, g.float())]
+        del ref, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+        for n in RING_SIZES:
+            streams = [torch.cuda.Stream() for _ in range(n)]
+            ops.reset_launch_counts()
+            run_ring(torch, q, k, v, g, streams)  # warm: the allocator, cuBLAS
+            got, fwd_ms, bwd_ms = run_ring(torch, q, k, v, g, streams)
+            # The ring's own work: every rank's kernels, forward and backward.
+            busy = device_ms(lambda: run_ring(torch, q, k, v, g, streams), iters=2, warmup=0)
+            launches = {**ops.launch_counts(), **flat_variants(ops.variant_launch_counts())}
+            tols = (K2_TOL["bfloat16"],) + (K34_TOL["bfloat16"],) * 3
+            rels = [float((a.float() - w).abs().max()) / float(w.abs().max())
+                    for a, w in zip(got, wants)]
+            ok = (all(r <= tol for r, tol in zip(rels, tols))
+                  and all(bool(torch.isfinite(a).all()) for a in got)
+                  and not any(launches.values()))
+            say(f"ring n={n} (B={B} H={H} KV={RING_KV_HEADS} S={S} D={D} bf16, causal): "
+                f"out rel_err={rels[0]:.3e} (tol {tols[0]:g}) dq={rels[1]:.3e} dk={rels[2]:.3e} "
+                f"dv={rels[3]:.3e} (tol {tols[1]:g}); per-rank ms, threads on one card: "
+                f"forward {[round(x, 4) for x in fwd_ms]} backward "
+                f"{[round(x, 4) for x in bwd_ms]}; device_ms of one forward and backward, "
+                f"all ranks={fmt_ms(busy)}; K1-K4 launches {launches} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"ring attention n={n} at {(B, H, S, D)} disagrees with the reference, "
+                     f"or launched a kernel: {rels} {launches}")
+            del got
+            torch.cuda.empty_cache()
+        del wants
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The whole sequence on one card, K/V repeated: K2 + K3 + K4, and SDPA.
+        kr, vr = (t.repeat_interleave(G, dim=1) for t in (k, v))
+        out, lse = fa.flash_forward(q, kr, vr, True)
+        delta = fa.attention_delta(out, g)
+        args = (q, kr, vr, g, lse, delta, True)
+        k2 = time_ms(lambda: fa.flash_forward(q, kr, vr, True))
+        k3 = time_ms(lambda: fa.flash_backward_dq(*args))
+        k4 = time_ms(lambda: fa.flash_backward_dkv(*args))
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True))
+        sdpa_leaves = [t.detach().requires_grad_(True) for t in (q, kr, vr)]
+
+        def sdpa_step():
+            o = F.scaled_dot_product_attention(*sdpa_leaves, is_causal=True)
+            return torch.autograd.grad(o, sdpa_leaves, g)
+
+        sdpa_both = time_ms(sdpa_step, iters=10)
+        say(f"ring comparison, whole sequence on one card (B={B} H={H} S={S} D={D}, K/V "
+            f"repeated): K2 {k2:.4f} + K3 {k3:.4f} + K4 {k4:.4f} = {k2 + k3 + k4:.4f} ms; "
+            f"SDPA forward {sdpa_fwd:.4f} ms, forward and backward {sdpa_both:.4f} ms")
+        del q, k, v, g, kr, vr, out, lse, delta, args, sdpa_leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--only-kernels", action="store_true",
@@ -783,9 +975,13 @@ def main(argv: list[str] | None = None) -> int:
         say(f"matmul smoke kernel={kernel}: ok={res['ok']} size={res['size']} "
             f"blocks={res['blocks']} tflops={res['tflops']} mfu={res['mfu']} "
             f"ident_err={res['ident_err']} rowsum_rel_err={res['rowsum_rel_err']:.3e} "
-            f"launches={launches}")
+            f"launches={launches} devices={res['devices']} (visible {res['visible_devices']}) "
+            f"per_device={json.dumps(res['per_device'])}")
         if res["backend"] != "cuda":
             fail(f"matmul smoke ran on {res['backend']}, not the card")
+        # The stock path verifies every card; K1 runs on one, as pallas does.
+        want_devices = 1 if kernel == "cuda" else torch.cuda.device_count()
+        check_devices(f"matmul smoke --kernel {kernel}", res, want_devices)
         if kernel == "cuda":
             paths["matmul smoke"] = launches
             if launches["K1"] <= 0 or launches["K1/sm90"] != launches["K1"]:
@@ -803,6 +999,8 @@ def main(argv: list[str] | None = None) -> int:
             "transcript_margin", "flash_kernel_rel_err", "tokens_per_sec", "ms_per_token",
             "prefill_tokens_per_sec", "hbm_bw_util", "mfu", "prefill_mfu",
             "kernel_launches")}))
+    say(f"llama smoke: devices={res['devices']} per_device={json.dumps(res['per_device'])}")
+    check_devices("llama smoke", res, torch.cuda.device_count())
     rel = res.get("flash_kernel_rel_err")
     if not (res["ok"] and res["oracle_ok"] and res["transcript_ok"]
             and rel is not None and rel < 5e-2):
@@ -858,7 +1056,10 @@ def main(argv: list[str] | None = None) -> int:
     checkpoint_round_trip(torch)
     torch.cuda.empty_cache()
 
-    # --- 10. kernel summary -----------------------------------------------------
+    # --- 10. ring attention on virtual ranks ---------------------------------------
+    check_ring(torch)
+
+    # --- 11. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -884,7 +1085,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 11. last line ------------------------------------------------------------
+    # --- 12. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

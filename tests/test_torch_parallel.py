@@ -228,9 +228,12 @@ def test_verify_dcn_mesh_one_rank():
 
 
 def test_train_state_refuses_tp_and_sp():
-    for sizes in ((1, 1, 1, 1, 2), (1, 1, 1, 2, 1)):
+    """tp > 1 waits for the head-sharded decoder layer; sp > 1 runs only with
+    the ring mesh in the config (tests/test_torch_ring.py trains at sp > 1)."""
+    for sizes, message in (((1, 1, 1, 1, 2), "ROADMAP.md, queue 1 item 2"),
+                           ((1, 1, 1, 2, 1), "ring_mesh=mesh")):
         mesh = types.SimpleNamespace(mesh_dim_names=tmesh.AXES, mesh=torch.empty(sizes))
-        with pytest.raises(ValueError, match="ROADMAP.md, queue 1 item 7"):
+        with pytest.raises(ValueError, match=message):
             ttrain.make_llama_train_state(llama_cfg(), mesh)
 
 

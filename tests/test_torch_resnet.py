@@ -221,6 +221,26 @@ def test_resnet_smoke_passes_on_cpu():
         assert key in result
 
 
+def test_resnet_smoke_on_two_ranks_matches_one_rank(monkeypatch):
+    """Two devices injected on the CPU: one gloo rank each, the global batch
+    split over them with the BatchNorm statistics all-reduced, so every
+    rank reports the one-rank run's global-batch losses."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned workers' threads
+    one = runner.run_workload("resnet", steps=2, batch=8, device="cpu")
+    two = runner.run_workload("resnet", steps=2, batch=8, device="cpu", n_devices=2)
+    assert two["ok"] is True and two["devices"] == 2 and two["batch"] == 8
+    assert len(two["per_device"]) == 2
+    for rank in two["per_device"]:
+        assert rank["ok"] and rank["device_name"] == "cpu"
+        # The loss before any step: equal up to the 4 decimals both round to.
+        assert abs(rank["loss_first"] - one["loss_first"]) <= 1.01e-4
+        # After the steps: with bf16 activations each half batch's weight
+        # gradient is rounded to bf16 before the all-reduce (tests/test_ops.py's
+        # bf16 tolerance, 3e-2).
+        assert abs(rank["loss_last"] - one["loss_last"]) <= 3e-2 * one["loss_last"]
+    assert one["loss_last"] < one["loss_first"]
+
+
 def test_size_table_and_config_errors():
     assert resnet_train.pick_size(None, "cpu") == "tiny"
     assert resnet_train.pick_size(None, "cuda") == "resnet50"

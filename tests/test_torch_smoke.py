@@ -46,6 +46,72 @@ def test_matmul_smoke_passes_on_cpu(kernel):
     assert result["mfu"] is None
 
 
+def second_device_fails(dev, index, count, mode):
+    """A smoke body whose second device fails: it raises, dies, or reports
+    a failed oracle."""
+    if index == 1:
+        if mode == "raises":
+            raise RuntimeError("device 1 is broken")
+        if mode == "dies":
+            os._exit(3)
+        return {"ok": False, "device_name": "cpu"}
+    return {"ok": True, "device_name": "cpu"}
+
+
+@pytest.mark.parametrize("workload,kwargs", [
+    ("matmul", dict(size=384, iters=1)),
+    ("llama", dict(batch=2, prompt_len=8, decode_len=4)),
+])
+def test_smoke_verifies_every_device(monkeypatch, workload, kwargs):
+    """Two devices injected on the CPU: one worker each, two sets of
+    oracles, ``devices`` 2; every card's oracles pass."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned workers' threads
+    result = runner.run_workload(workload, device="cpu", n_devices=2, **kwargs)
+    assert result["ok"] is True and result["devices"] == 2
+    assert len(result["per_device"]) == 2
+    assert all(card["ok"] and card["device_name"] == "cpu" for card in result["per_device"])
+    if workload == "matmul":
+        assert result["size"] == 256  # a multiple of 128 rows on each of 2 cards
+        assert all(card["ident_err"] <= 1e-6 and card["rowsum_rel_err"] <= 2e-2
+                   for card in result["per_device"])
+        assert result["ident_err"] == max(c["ident_err"] for c in result["per_device"])
+    else:
+        assert all(card["oracle_ok"] and card["transcript_ok"] for card in result["per_device"])
+        assert result["transcript_margin"] == max(
+            c["transcript_margin"] for c in result["per_device"])
+        assert result["kernel_launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+
+def test_cuda_matmul_kernel_stays_on_one_device():
+    result = runner.run_workload("matmul", size=256, iters=1, kernel="cuda", device="cpu",
+                                 n_devices=2)
+    assert result["devices"] == 1 and result["visible_devices"] == 1
+    assert len(result["per_device"]) == 1
+    with pytest.raises(runner.SmokeConfigError, match="positive integer"):
+        runner.run_workload("matmul", size=256, device="cpu", n_devices=0)
+
+
+@pytest.mark.parametrize("mode", ["raises", "dies", "not-ok"])
+def test_one_failing_device_fails_the_smoke(monkeypatch, mode):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cpu = torch.device("cpu")
+    if mode == "not-ok":
+        results = runner.run_per_device(second_device_fails, cpu, 2, mode=mode)
+        combined = runner.combine(results, ("ok", "device_name"), {})
+        assert combined["ok"] is False and combined["devices"] == 2
+        assert [card["ok"] for card in combined["per_device"]] == [True, False]
+    else:
+        with pytest.raises(runner.SmokeError, match="device 1 of 2 failed"):
+            runner.run_per_device(second_device_fails, cpu, 2, mode=mode)
+
+
+def test_a_failing_device_fails_the_llama_smoke(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    with pytest.raises(runner.SmokeError, match="reported failure"):
+        runner.run_workload("llama", batch=2, prompt_len=8, decode_len=16,
+                            cache_position_offset=1, device="cpu", n_devices=2)
+
+
 def test_matmul_rejects_bad_parameters():
     with pytest.raises(runner.SmokeConfigError, match="unknown matmul kernel"):
         runner.run_workload("matmul", size=256, kernel="pallas", device="cpu")

@@ -14,6 +14,10 @@ map only renames. Leaves must be float32 or float16 numpy arrays: cast bf16
 leaves to float32 first (numpy's bf16 comes from ``ml_dtypes``, which the
 port does not need). The Hugging Face loader comes in a later slice.
 
+``config_from_jax`` carries a JAX ``LlamaConfig``'s fields across:
+``ring_axis`` but never ``ring_mesh`` (a JAX ``Mesh`` means nothing to
+``torch.distributed``; a caller that wants the ring passes a ``DeviceMesh``).
+
 ``resnet_params_from_jax`` does the same for
 :class:`~tpu_cc_manager_torch.models.resnet.ResNet` from the flax
 ``{"params", "batch_stats"}`` collections.
@@ -60,6 +64,23 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig, device="cuda") ->
             path = path[:-1]
         state[".".join(path)] = torch.tensor(arr, dtype=cfg.param_dtype, device=device)
     return state
+
+
+# The JAX LlamaConfig fields with the same meaning in the port (the dtypes
+# are mapped by name, ring_mesh is left behind).
+_CONFIG_FIELDS = ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads", "hidden_dim",
+                  "max_seq_len", "rope_theta", "rope_scaling", "norm_eps", "remat",
+                  "use_flash", "ring_axis")
+
+
+def config_from_jax(jax_cfg, **overrides) -> LlamaConfig:
+    """The port's :class:`LlamaConfig` for a JAX ``LlamaConfig``: the same
+    geometry, options and ``ring_axis``, ``dtype`` and ``param_dtype`` by
+    name (``jnp.bfloat16`` -> ``torch.bfloat16``), then ``overrides``."""
+    kw = {f: getattr(jax_cfg, f) for f in _CONFIG_FIELDS}
+    for f in ("dtype", "param_dtype"):
+        kw[f] = getattr(torch, np.dtype(getattr(jax_cfg, f)).name)
+    return LlamaConfig(**{**kw, **overrides})
 
 
 def resnet_params_from_jax(tree: Mapping[str, Any], model: torch.nn.Module,

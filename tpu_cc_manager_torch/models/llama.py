@@ -16,12 +16,20 @@ forward runs flash attention (``ops/flash_attention.py``: K2 forward, K3/K4
 backward) when :meth:`LlamaConfig.resolved_use_flash` is true, which it is on
 the card. ``remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), so with flash on, K2 launches twice per layer.
+
+With ``LlamaConfig.ring_mesh`` set, the no-cache forward is sequence
+parallel: each rank of the mesh's ``ring_axis`` passes in its contiguous
+chunk of the sequence, RoPE phases start at the chunk's global offset
+(``rank_in_ring * S_local``), and attention is ring attention
+(``ops/ring_attention.py``) in the grouped KV layout, whatever ``use_flash``
+says.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 from torch import nn
@@ -29,6 +37,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpu_cc_manager_torch.ops.flash_attention import flash_attention
+from tpu_cc_manager_torch.ops.ring_attention import GroupRing, ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +64,10 @@ class LlamaConfig:
     # Flash kernel on the no-cache path. None resolves to True on the card
     # (the CUDA kernel) and False on the CPU (einsum attention).
     use_flash: bool | None = None
+    # Sequence parallelism: a torch DeviceMesh whose ``ring_axis`` splits the
+    # sequence; the no-cache forward then runs ring attention. None = off.
+    ring_mesh: Any = None
+    ring_axis: str = "sp"
 
     @property
     def head_dim(self) -> int:
@@ -204,7 +217,7 @@ class Attention(nn.Module):
         self.cfg = cfg
 
     def forward(self, x, layer: int, phases, mask, layer_cache=None, position=None,
-                use_flash: bool = False):
+                use_flash: bool = False, ring=None):
         cfg = self.cfg
         B, S, _ = x.shape
         H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -225,6 +238,11 @@ class Attention(nn.Module):
             k_buf[:, start : start + S] = k.to(k_buf.dtype)
             v_buf[:, start : start + S] = v.to(v_buf.dtype)
             k, v = k_buf, v_buf
+        elif ring is not None:
+            # This rank's sequence chunk; K/V stay KV-head-shaped.
+            out = ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), ring)
+            out = out.transpose(1, 2).reshape(B, S, H * D).to(dt)
+            return out @ self.wo[layer].to(dt)
         elif use_flash:
             # Kernel layout (B, heads, S, D); GQA by kv-head repetition.
             G = H // KV
@@ -277,9 +295,9 @@ class DecoderBlock(nn.Module):
         self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, layer: int, phases, mask, layer_cache=None, position=None,
-                use_flash: bool = False):
+                use_flash: bool = False, ring=None):
         x = x + self.attn(self.attn_norm(x, layer), layer, phases, mask,
-                          layer_cache, position, use_flash)
+                          layer_cache, position, use_flash, ring)
         return x + self.mlp(self.mlp_norm(x, layer), layer)
 
 
@@ -342,12 +360,22 @@ class LlamaModel(nn.Module):
 
     def forward(self, tokens, cache=None, position=None):
         """tokens (B, S) -> (logits f32 (B, S, vocab), cache). The cache
-        buffers are updated in place and returned."""
+        buffers are updated in place and returned. With ``cfg.ring_mesh``
+        and no cache, ``tokens`` is this rank's chunk of the sequence."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embedding[tokens].to(cfg.dtype)
         dev = tokens.device
-        if cache is not None:
+        ring = mask = None
+        if cache is None and cfg.ring_mesh is not None:
+            ring = GroupRing(cfg.ring_mesh.get_group(cfg.ring_axis))
+            # Positions of this chunk: the phases start at its global offset.
+            start = ring.index * S
+            if start + S > cfg.max_seq_len:
+                raise ValueError(f"ring chunk {ring.index} of {S} tokens ends past "
+                                 f"max_seq_len {cfg.max_seq_len}")
+            phases = self.phases[start : start + S]
+        elif cache is not None:
             T = cache[0].shape[2]
             start = max(0, min(position, cfg.max_seq_len - S))  # dynamic_slice clamps
             phases = self.phases[start : start + S]
@@ -364,10 +392,10 @@ class LlamaModel(nn.Module):
             mask = torch.zeros((S, S), device=dev).masked_fill(
                 t[None, :] > t[:, None], float("-inf")
             )
-        use_flash = cache is None and cfg.resolved_use_flash(dev)
+        use_flash = cache is None and ring is None and cfg.resolved_use_flash(dev)
         for layer in range(cfg.n_layers):
             layer_cache = None if cache is None else (cache[0][layer], cache[1][layer])
-            args = (x, layer, phases, mask, layer_cache, position, use_flash)
+            args = (x, layer, phases, mask, layer_cache, position, use_flash, ring)
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(self.blocks, *args, use_reentrant=False)
             else:

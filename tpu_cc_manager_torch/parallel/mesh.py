@@ -5,7 +5,7 @@ Port of ``tpu_cc_manager/parallel/mesh.py``. Axes, outermost first:
 - ``dcn``  data parallelism across nodes;
 - ``dp``   data parallelism within a node;
 - ``fsdp`` parameter sharding (ZeRO-style) over data-parallel ranks;
-- ``sp``   sequence parallelism (ring attention, not ported yet);
+- ``sp``   sequence parallelism (ring attention, ``ops/ring_attention.py``);
 - ``tp``   tensor parallelism over the innermost, fastest dimension.
 
 A mesh is a ``torch.distributed.DeviceMesh`` with one process per device

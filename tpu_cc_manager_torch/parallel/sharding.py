@@ -23,7 +23,7 @@ from tpu_cc_manager_torch.parallel.mesh import DATA_AXES, mesh_sizes
 # logical axis -> mesh axis (None = replicated along that logical axis).
 LOGICAL_AXIS_RULES = (
     ("batch", ("dcn", "dp", "fsdp")),  # global batch over all data axes
-    ("seq", None),                      # sequence sharding arrives with ring attention
+    ("seq", None),                      # the train step splits the sequence over sp itself
     ("embed", "fsdp"),                  # ZeRO-style weight sharding
     ("heads", "tp"),
     ("kv_heads", "tp"),
@@ -100,30 +100,37 @@ def data_groups(mesh: DeviceMesh):
 
 def data_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """The 2-D ``(replicate, shard)`` mesh of FSDP2's HSDP: ``dcn`` x ``dp``
-    replicate, ``fsdp`` shards. Built from the 5-D mesh's rank grid with the
-    public constructor (``sp`` and ``tp`` must be 1)."""
+    x ``sp`` replicate, ``fsdp`` shards, so every parameter's gradient is
+    averaged over the sequence ranks too. Built from the 5-D mesh's rank
+    grid with the public constructor (``tp`` must be 1). The grid's axes are
+    ``(dcn, dp, fsdp, sp, tp)``: ``sp`` moves before ``fsdp`` before the
+    reshape, or a row of the result would mix fsdp and sp ranks."""
     sizes = mesh_sizes(mesh)
-    if sizes["sp"] * sizes["tp"] != 1:
-        raise ValueError("data_mesh: sp and tp must be 1")
-    grid = mesh.mesh.reshape(sizes["dcn"] * sizes["dp"], sizes["fsdp"])
+    if sizes["tp"] != 1:
+        raise ValueError("data_mesh: tp must be 1")
+    grid = mesh.mesh.permute(0, 1, 3, 2, 4).reshape(
+        sizes["dcn"] * sizes["dp"] * sizes["sp"], sizes["fsdp"])
     return DeviceMesh(mesh.device_type, grid, mesh_dim_names=("replicate", "shard"))
 
 
 @dataclasses.dataclass(frozen=True)
 class BatchSharding:
-    """Dim 0 of the global batch over the data axes, in row-major rank
-    order: this rank holds rows ``[index * n, (index + 1) * n)`` of
-    ``count * n``."""
+    """Dim ``dim`` of a global tensor over ``count`` ranks, in row-major
+    rank order: this rank holds ``[index * n, (index + 1) * n)`` of
+    ``count * n`` along it (dim 0, the batch, over the data axes; dim 1,
+    the sequence, over ``sp``)."""
 
     index: int
     count: int
+    dim: int = 0
 
     def local(self, batch: torch.Tensor) -> torch.Tensor:
-        if batch.shape[0] % self.count:
-            raise ValueError(f"batch {batch.shape[0]} must divide evenly over "
-                             f"{self.count} data-parallel ranks")
-        n = batch.shape[0] // self.count
-        return batch[self.index * n : (self.index + 1) * n]
+        size = batch.shape[self.dim]
+        if size % self.count:
+            raise ValueError(f"dim {self.dim} of size {size} must divide evenly over "
+                             f"{self.count} ranks")
+        n = size // self.count
+        return batch.narrow(self.dim, self.index * n, n)
 
 
 def batch_sharding(mesh: DeviceMesh) -> BatchSharding:
@@ -136,3 +143,12 @@ def batch_sharding(mesh: DeviceMesh) -> BatchSharding:
         index = index * sizes[a] + coord[a]
     return BatchSharding(index, math.prod(sizes[a] for a in DATA_AXES))
 
+
+
+def sequence_sharding(mesh: DeviceMesh) -> BatchSharding:
+    """This rank's chunk of the sequence: dim 1 over ``sp``, chunk index =
+    the rank's ``sp`` coordinate (its rank in the ``sp`` group, which ring
+    attention's phase offset and exchange use)."""
+    sizes = mesh_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return BatchSharding(coord["sp"], sizes["sp"], dim=1)

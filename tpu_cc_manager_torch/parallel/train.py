@@ -10,11 +10,16 @@ The JAX state is sharded by the logical-axis rules (``parallel/sharding.py``)
 and its step is one ``pjit``. Here the parameters are sharded with FSDP2
 (``fully_shard``) over the data axes: each parameter's ``embed`` dim, where
 the rules put ``fsdp``, is split over ``fsdp`` and replicated over ``dcn``
-x ``dp`` (HSDP). The same code runs at every world size, one rank included;
-the AdamW moments follow the parameter placements. Tensor (``tp``) and
-sequence (``sp``) parallelism need the decoder layer to run on its local
-head or sequence shard, which the stacked ``(L, in, out)`` parameters do
-not allow yet (``ROADMAP.md``, queue 1 item 7), so the state refuses them.
+x ``dp`` x ``sp`` (HSDP). The same code runs at every world size, one rank
+included; the AdamW moments follow the parameter placements.
+
+Sequence parallelism (``sp`` > 1) needs ``cfg.ring_mesh`` set to the mesh,
+as the JAX dry run sets it: each rank then takes its rows of the batch and
+its contiguous chunk of the sequence, and the model's attention is ring
+attention over the ``sp`` group. Tensor parallelism (``tp`` > 1) needs the
+decoder layer to run on its local head shard, which the stacked
+``(L, in, out)`` parameters do not allow yet (``ROADMAP.md``, queue 1 item
+2), so the state refuses it.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from tpu_cc_manager_torch.parallel.sharding import (
     data_mesh,
     fsdp_dim,
     placements_for,
+    sequence_sharding,
 )
 
 
@@ -72,11 +78,15 @@ def make_llama_train_state(cfg: LlamaConfig, mesh, learning_rate: float = 3e-4,
     every parameter (optax's default has no mask). Returns the state and
     each parameter's placements on ``mesh`` (:func:`placements_for`)."""
     sizes = mesh_sizes(mesh)
-    if sizes["tp"] > 1 or sizes["sp"] > 1:
+    if sizes["tp"] > 1:
         raise ValueError(
-            f"make_llama_train_state: tp={sizes['tp']} and sp={sizes['sp']} must be 1; "
-            "tensor and sequence parallelism come with ring attention (ROADMAP.md, "
-            "queue 1 item 7)"
+            f"make_llama_train_state: tp={sizes['tp']} must be 1; tensor parallelism "
+            "needs the decoder layer on its local head shard (ROADMAP.md, queue 1 item 2)"
+        )
+    if sizes["sp"] > 1 and (cfg.ring_mesh != mesh or cfg.ring_axis != "sp"):
+        raise ValueError(
+            f"make_llama_train_state: sp={sizes['sp']} splits the sequence over the ring; "
+            "pass cfg with ring_mesh=mesh and ring_axis='sp'"
         )
     model = LlamaModel(cfg, device=mesh_device(mesh), seed=seed)
     names = {id(p): n for n, p in model.named_parameters()}
@@ -91,13 +101,18 @@ def make_llama_train_state(cfg: LlamaConfig, mesh, learning_rate: float = 3e-4,
 def make_llama_train_step(cfg: LlamaConfig, mesh, state_shardings: dict):
     """``train_step(state, tokens) -> (state, loss)`` for the global batch
     ``tokens`` (B, S + 1), the same on every rank: each rank takes its rows
-    (:func:`batch_sharding`), inputs ``[:, :-1]`` and targets ``[:, 1:]``.
-    The loss returned is the global batch's mean. Parameters and moments are
-    updated in place (the port's form of the JAX step's
-    ``donate_argnums=(0,)``); the gradients stay on the parameters until the
-    next step."""
+    (:func:`batch_sharding`), inputs ``[:, :-1]`` and targets ``[:, 1:]``,
+    and of both its chunk of the sequence (:func:`sequence_sharding`; S
+    must divide by ``sp``, as ``32 * sp`` does in the JAX dry run). The loss
+    returned is the mean over every data and sequence rank, the global
+    batch's mean. Parameters and moments are updated in place (the port's
+    form of the JAX step's ``donate_argnums=(0,)``); the gradients stay on
+    the parameters until the next step."""
     rows = batch_sharding(mesh)
+    chunk = sequence_sharding(mesh)
     groups, n_data = data_groups(mesh)
+    if chunk.count > 1:
+        groups, n_data = groups + [mesh.get_group("sp")], n_data * chunk.count
     fsdp_axis = mesh.mesh_dim_names.index("fsdp")
 
     def train_step(state: TrainState, tokens: torch.Tensor):
@@ -107,7 +122,7 @@ def make_llama_train_step(cfg: LlamaConfig, mesh, state_shardings: dict):
             if p.placements[-1] != state_shardings[name][fsdp_axis]:
                 raise ValueError(f"train_step: {name} is not sharded as state_shardings says")
         local = rows.local(tokens)
-        inputs, targets = local[:, :-1], local[:, 1:]
+        inputs, targets = chunk.local(local[:, :-1]), chunk.local(local[:, 1:])
         state.optimizer.zero_grad(set_to_none=True)
         logits, _ = state.model(inputs)
         loss = cross_entropy(logits, targets)
@@ -115,7 +130,7 @@ def make_llama_train_step(cfg: LlamaConfig, mesh, state_shardings: dict):
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        # gloo has no AVG: sum each rank's mean, then divide.
+        # gloo has no AVG: sum each rank's mean over the groups, then divide.
         return state, sum_over(loss.detach().clone(), groups) / n_data
 
     return train_step

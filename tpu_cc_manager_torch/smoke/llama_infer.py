@@ -11,7 +11,10 @@ oracles and result keys:
    path within a relative 5e-2 on the logits (when flash is the default
    path, i.e. on the card).
 
-Oracles 1 and 2 pin the einsum path so cache-position correctness stays
+The smoke runs one replica on every visible card, each with all three
+oracles (the JAX smoke shards one model over every device; tensor
+parallelism over heads is not ported yet), and passes only when every card
+does. Oracles 1 and 2 pin the einsum path so cache-position correctness stays
 separate from kernel choice; every oracle starts from a fresh cache. The
 timed decode reuses one post-prefill cache across repetitions: each
 repetition rewrites every position it reads, and later positions are
@@ -33,7 +36,12 @@ from tpu_cc_manager_torch.ops import _build
 from tpu_cc_manager_torch.smoke.runner import (
     SmokeConfigError,
     await_dispatch_gate,
+    combine,
+    device_count,
     resolve_device,
+    run_per_device,
+    summed_counts,
+    worst,
 )
 from tpu_cc_manager_torch.utils.gpu_info import (
     generation_for,
@@ -79,7 +87,6 @@ def argmax_agrees(ref_logits, got, rel_margin: float = 1e-2) -> bool:
     return argmax_shortfall(ref_logits, got) <= rel_margin
 
 
-@torch.inference_mode()
 def run(
     size: str | None = None,
     batch: int = 4,
@@ -88,20 +95,51 @@ def run(
     seed: int = 0,
     cache_position_offset: int = 0,
     device: str = "cuda",
+    n_devices: int | None = None,
 ) -> dict:
-    """``cache_position_offset`` is a test-only fault hook: it shifts every
-    cached-decode position, emulating the off-by-one cache-indexing bug the
-    transcript oracle exists to catch."""
+    """One replica on every visible card (``n_devices`` overrides the
+    count), each with all three oracles; the smoke passes only when every
+    card does. ``cache_position_offset`` is a test-only fault hook: it shifts
+    every cached-decode position, emulating the off-by-one cache-indexing
+    bug the transcript oracle exists to catch."""
     dev = resolve_device(device)
-    backend = dev.type
-    size, cfg = _pick_config(size, backend)
-    max_len = prompt_len + decode_len
+    size, cfg = _pick_config(size, dev.type)
+    count = device_count(dev, n_devices)
 
     # COMPILE→DISPATCH boundary: the K2 library builds under a warmup gate;
     # the weights are the first device allocation.
     use_flash = cfg.resolved_use_flash(dev)
-    compile_fns = (lambda: _build.load("flash_attention"),) if use_flash and backend == "cuda" else ()
+    compile_fns = (lambda: _build.load("flash_attention"),) if use_flash and dev.type == "cuda" else ()
     await_dispatch_gate(compile_fns=compile_fns)
+    results = run_per_device(verify_replica, dev, count, size=size, batch=batch,
+                             prompt_len=prompt_len, decode_len=decode_len, seed=seed,
+                             cache_position_offset=cache_position_offset)
+    # The worst card's oracle values and the slowest card's speed; the
+    # launches of every card together.
+    slowest = worst(min)
+    return combine(results, PER_DEVICE_KEYS, {
+        "oracle_ok": all, "transcript_ok": all, "timing_valid": all,
+        "transcript_margin": max, "flash_kernel_rel_err": worst(max),
+        "tokens_per_sec": slowest, "ms_per_token": worst(max),
+        "prefill_tokens_per_sec": slowest, "mfu": slowest, "hbm_bw_util": slowest,
+        "prefill_mfu": slowest,
+        "kernel_launches": summed_counts, "kernel_launches_by_variant": summed_counts})
+
+
+# Each card's oracles, speed and K2 launches in the combined result.
+PER_DEVICE_KEYS = ("device_name", "ok", "oracle_ok", "transcript_ok", "transcript_margin",
+                   "flash_kernel_rel_err", "tokens_per_sec", "kernel_launches")
+
+
+@torch.inference_mode()
+def verify_replica(dev, index: int, count: int, size: str, batch: int, prompt_len: int,
+                   decode_len: int, seed: int, cache_position_offset: int) -> dict:
+    """The whole smoke on one card: the model from ``seed``, the three
+    oracles, decode and prefill timings, and this card's K2 launches."""
+    backend = dev.type
+    size, cfg = _pick_config(size, backend)
+    max_len = prompt_len + decode_len
+    use_flash = cfg.resolved_use_flash(dev)
     ops.reset_launch_counts()
 
     model = LlamaModel(cfg, device=dev, seed=seed)
@@ -237,7 +275,6 @@ def run(
         "backend": backend,
         "device_name": torch.cuda.get_device_name(dev) if backend == "cuda" else "cpu",
         "generation": generation,
-        "devices": 1,
         "params": cfg.param_count(),
         "batch": batch,
         "decode_len": decode_len,

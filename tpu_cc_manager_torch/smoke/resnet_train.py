@@ -6,7 +6,8 @@ stay finite and end strictly below where it began. Throughput (images/s)
 and MFU are reported, so a CC-on vs CC-off MFU loss is measurable by running
 the same workload in both modes.
 
-The mesh is ``MeshSpec(dcn=1, dp=-1, fsdp=1, tp=1)``. Parameters are
+The smoke runs one rank per visible card (``smoke/runner.py``), and the
+mesh ``MeshSpec(dcn=1, dp=-1, fsdp=1, tp=1)`` spans them all. Parameters are
 replicated over its data group by ``DistributedDataParallel`` (the JAX
 state's replicated sharding), each rank takes its rows of the global batch,
 and BatchNorm statistics are over the global batch (``models/resnet.py``).
@@ -26,13 +27,19 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 
 from tpu_cc_manager_torch.models.resnet import ResNet50, ResNetTiny
+from tpu_cc_manager_torch.parallel.distributed import bootstrap
 from tpu_cc_manager_torch.parallel.mesh import MeshSpec, make_mesh
 from tpu_cc_manager_torch.parallel.sharding import batch_sharding
 from tpu_cc_manager_torch.parallel.train import TrainState, mesh_device
 from tpu_cc_manager_torch.smoke.runner import (
     SmokeConfigError,
+    SmokeError,
     await_dispatch_gate,
+    combine,
+    device_count,
     resolve_device,
+    run_per_device,
+    worst,
 )
 from tpu_cc_manager_torch.utils.gpu_info import peak_flops_per_chip
 
@@ -107,19 +114,43 @@ def make_resnet_train_step(mesh):
 
 
 def run(size: str | None = None, batch: int | None = None, steps: int = 6, seed: int = 0,
-        device: str = "cuda") -> dict:
+        device: str = "cuda", n_devices: int | None = None) -> dict:
+    """One rank per visible card (``n_devices`` overrides the count), the
+    global batch split over them; passes only when every rank does."""
     dev = resolve_device(device)
+    size = pick_size(size, dev.type)
+    count = device_count(dev, n_devices)
+    batch = global_batch(size, batch, count)
+
+    # COMPILE->DISPATCH boundary (smoke/runner.py): the sizes above are host
+    # work; the process group and the weights are the first device work.
+    # Under a warmup gate the child blocks here until released.
+    await_dispatch_gate()
+    results = run_per_device(train_rank, dev, count, size=size, batch=batch, steps=steps,
+                             seed=seed)
+    # The loss is the global batch's on every rank; the slowest rank's speed.
+    return combine(results, PER_DEVICE_KEYS, {
+        "timing_valid": all, "seconds_per_step": worst(max),
+        "images_per_sec": worst(min), "mfu": min})
+
+
+# Each rank's verdict, loss and speed in the combined result.
+PER_DEVICE_KEYS = ("device_name", "ok", "loss_first", "loss_last", "seconds_per_step")
+
+
+def train_rank(dev, index: int, count: int, size: str, batch: int, steps: int,
+               seed: int) -> dict:
+    """Rank ``index`` of ``count``: joins the others' process group
+    (``bootstrap`` reads the runner's torchrun names), builds the data mesh
+    over all of them, and trains on its rows of the global batch."""
     backend = dev.type
-    size = pick_size(size, backend)
     _, image_size, num_classes, _ = SIZES[size]
+    if count > 1:
+        bootstrap(device=backend)
     mesh = make_mesh(MESH_SPEC, device_type=backend)
     world = mesh.size()
-    batch = global_batch(size, batch, world)
-
-    # COMPILE->DISPATCH boundary (smoke/runner.py): the mesh and the sizes
-    # above are host work; the weights below are the first device
-    # allocation. Under a warmup gate the child blocks here until released.
-    await_dispatch_gate()
+    if world != count:
+        raise SmokeError(f"the data mesh has {world} ranks, want one per device ({count})")
     state = make_resnet_train_state(size, mesh, seed)
     train_step = make_resnet_train_step(mesh)
     dev = mesh_device(mesh)
@@ -180,7 +211,6 @@ def run(size: str | None = None, batch: int | None = None, steps: int = 6, seed:
         "model": size,
         "backend": backend,
         "device_name": torch.cuda.get_device_name(dev) if backend == "cuda" else "cpu",
-        "devices": world,
         "batch": batch,
         "timing_valid": bool(timing_valid),
         "seconds_per_step": round(dt, 4) if timing_valid else None,

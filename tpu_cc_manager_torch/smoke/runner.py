@@ -7,6 +7,13 @@ plus its measurements. The agent runs workloads through
 so the card is acquired and released by a child process, never by the
 long-lived agent; ``CCManager(smoke_runner=..., smoke_warmup_factory=...)``
 takes this module's runner and :class:`SmokeWarmup`.
+
+A smoke verifies every visible card, as the JAX smokes use every device:
+inside its child, after the dispatch gate, :func:`run_per_device` runs the
+smoke's body once per card, concurrently in one spawned worker per card,
+and :func:`combine` makes one result of theirs (``ok`` only when every card
+passed, ``devices`` the card count, ``per_device`` each card's oracles).
+The agent still sees one child and one JSON line.
 """
 
 from __future__ import annotations
@@ -17,10 +24,12 @@ import logging
 import os
 import pathlib
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 from tpu_cc_manager_torch.utils.poll import poll_until
 
@@ -140,6 +149,166 @@ def await_dispatch_gate(compile_fns: tuple = ()) -> bool:
     if not opened:
         raise SmokeError(f"dispatch gate {gate} not released within {timeout_s:.0f}s")
     return True
+
+
+# ---------------------------------------------------------------------------
+# Every visible card: one worker per card inside the smoke's child
+# ---------------------------------------------------------------------------
+
+#: Seconds a worker that reported may take to exit before it is killed.
+WORKER_EXIT_TIMEOUT_S = 60.0
+_PR_SET_PDEATHSIG = 1
+
+
+def device_count(dev, n_devices: int | None = None) -> int:
+    """How many devices a smoke verifies: ``n_devices`` when given (the CPU
+    tests inject it), else every visible card for CUDA and one CPU."""
+    import torch
+
+    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n_devices is None:
+        return visible
+    if not isinstance(n_devices, int) or n_devices < 1:
+        raise SmokeConfigError(f"n_devices must be a positive integer (got {n_devices!r})")
+    if dev.type == "cuda" and n_devices > visible:
+        raise SmokeConfigError(f"n_devices={n_devices} but only {visible} card(s) are visible")
+    return n_devices
+
+
+def _die_with_parent(parent_pid: int) -> None:
+    """Have the kernel kill this worker when the smoke's child dies (a
+    killed child must not leave workers holding cards)."""
+    if sys.platform.startswith("linux"):
+        import ctypes
+        import signal
+
+        libc = ctypes.CDLL(None, use_errno=True)
+        libc.prctl.argtypes = [ctypes.c_int, ctypes.c_ulong]
+        libc.prctl.restype = ctypes.c_int
+        libc.prctl(_PR_SET_PDEATHSIG, signal.SIGKILL)
+    if os.getppid() != parent_pid:
+        os._exit(1)
+
+
+def _device_worker(body, dev, index: int, count: int, port: int, parent_pid: int,
+                   kwargs: dict, conn) -> None:
+    """One card's worker: torchrun's environment for rank ``index`` of
+    ``count``, the card pinned, then ``body``; sends ``(True, result)`` or
+    ``(False, traceback)`` back."""
+    _die_with_parent(parent_pid)
+    os.environ.update(RANK=str(index), WORLD_SIZE=str(count), LOCAL_RANK=str(index),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_device(index)
+        conn.send((True, body(torch_device(dev, index), index, count, **kwargs)))
+    except Exception:  # the worker's boundary: report, then exit non-zero
+        conn.send((False, traceback.format_exc()))
+        raise
+    finally:
+        conn.close()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_per_device(body, dev, count: int, **kwargs) -> list[dict]:
+    """``body(device, index, count, **kwargs) -> dict`` once per device,
+    results in device order. One device runs in this process; more run
+    concurrently, one spawned worker per card (``cuda:i`` pinned, rank
+    ``i`` of ``count`` in torchrun's environment names, so a body that calls
+    ``parallel.distributed.bootstrap`` joins one process group over them).
+    ``body`` must be a module-level function. A worker that raises or dies
+    fails the smoke: :class:`SmokeError`, and the other workers are
+    killed."""
+    if count == 1:
+        return [body(torch_device(dev, 0), 0, 1, **kwargs)]
+    import multiprocessing.connection
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs, conns = [], []
+    for index in range(count):
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_device_worker, daemon=True, args=(
+            body, dev, index, count, port, os.getpid(), kwargs, send))
+        proc.start()
+        send.close()
+        procs.append(proc)
+        conns.append(recv)
+    results: dict[int, dict] = {}
+    try:
+        while len(results) < count:
+            pending = [i for i in range(count) if i not in results]
+            ready = multiprocessing.connection.wait(
+                [conns[i] for i in pending] + [procs[i].sentinel for i in pending])
+            for i in pending:
+                if conns[i] not in ready and procs[i].sentinel not in ready:
+                    continue
+                try:  # a dead worker's pipe holds its result or ends
+                    ok, payload = conns[i].recv()
+                except EOFError:
+                    ok, payload = False, "exited without a result"
+                if not ok:
+                    procs[i].join(timeout=WORKER_EXIT_TIMEOUT_S)
+                    raise SmokeError(f"device {i} of {count} failed (worker exit code "
+                                     f"{procs[i].exitcode}): {payload}")
+                results[i] = payload
+    finally:
+        failed = len(results) < count
+        for proc in procs:
+            proc.join(timeout=0 if failed else WORKER_EXIT_TIMEOUT_S)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        for conn in conns:
+            conn.close()
+    return [results[i] for i in range(count)]
+
+
+def torch_device(dev, index: int):
+    """Card ``index`` for a CUDA ``dev``; the CPU itself for a CPU one."""
+    import torch
+
+    return torch.device("cuda", index) if dev.type == "cuda" else torch.device("cpu")
+
+
+def combine(results: list[dict], per_device_keys: tuple, reducers: dict) -> dict:
+    """One smoke result from the per-device ones: device 0's keys, then
+    ``ok`` only when every device is ok, ``devices`` their count, each key of
+    ``reducers`` reduced over the devices, and ``per_device`` holding each
+    device's ``per_device_keys``."""
+    out = dict(results[0])
+    out["ok"] = all(r["ok"] for r in results)
+    out["devices"] = len(results)
+    for key, reduce in reducers.items():
+        out[key] = reduce([r[key] for r in results])
+    out["per_device"] = [{k: r[k] for k in per_device_keys} for r in results]
+    return out
+
+
+def worst(pick):
+    """A reducer: ``pick`` (``max`` or ``min``) over the devices' values, or
+    None when any device has none."""
+    return lambda values: None if any(v is None for v in values) else pick(values)
+
+
+def summed_counts(values: list[dict]) -> dict:
+    """Launch counts (flat or by variant) summed over the devices."""
+    out = {}
+    for counts in values:
+        for key, n in counts.items():
+            out[key] = summed_counts([out.get(key, {}), n]) if isinstance(n, dict) else out.get(key, 0) + n
+    return out
 
 
 def run_workload(name: str, **kwargs) -> dict:
