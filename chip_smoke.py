@@ -20,13 +20,15 @@ counts at 0 just before it and read just after:
    each case names the kernel that ran (``_variant``: bf16 at D = 64 or 128
    must take the wgmma kernel "sm90", the rest the CUDA-core kernel "simt");
    kernel / plain / SDPA / bound times and TFLOP/s at the 8B smoke's, the 1B
-   training and a long shape, and the simt kernel at ``entry()``'s shape;
-   then K3 and K4 (the flash backward): gradients through the autograd
-   Function against ``flash_backward_plain`` on the same out and lse over
-   the same grid, each case naming K3's and K4's kernels (as K2's), one f32
-   shape also against the autograd of ``reference_attention``; K3 / K4
-   kernel / plain / bound times at the 1B training shape and at S = 2048,
-   D = 128, beside SDPA's backward alone, each also by device time from
+   training and a long shape, the simt kernel at ``entry()``'s shape, and
+   the shapes phases 11 and 12 give it (the 8B forward's 32, 16 and 8 heads,
+   the 1B step's 16 heads per rank); then K3 and K4 (the flash backward):
+   gradients through the autograd Function against ``flash_backward_plain``
+   on the same out and lse over the same grid, each case naming K3's and
+   K4's kernels (as K2's), one f32 shape also against the autograd of
+   ``reference_attention``; K3 / K4 kernel / plain / bound times at the 1B
+   training shape, at S = 2048, D = 128 and at phase 12's 16 heads per rank,
+   beside SDPA's backward alone, each also by device time from
    ``torch.profiler``;
 5. the matmul smoke through the agent's runner with ``--kernel torch`` and
    ``--kernel cuda`` (the latter must show K1 launches, all on "sm90"); the
@@ -74,13 +76,36 @@ counts at 0 just before it and read just after:
    backward ms (CUDA events on its stream, waits included) and the ring's
    device time over all ranks (``torch.profiler``), beside K2 + K3 + K4 and
    SDPA on the whole sequence;
-11. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+11. tensor parallelism on virtual ranks (``parallel/tensor.py``): Llama-3-8B
+   at full width and depth (bf16 weights from seed 0, flash on, batch
+   4 x 1024, forward only under ``inference_mode``), first at tp = 1, then
+   at tp = 2 and 4 with one thread per tp rank on its own CUDA stream, each
+   holding ``shard_state_dict``'s shard of the tp = 1 weights and exchanging
+   through an in-memory ``all_reduce``/``all_gather`` (events, a barrier,
+   ``record_stream``) in place of ``GroupTP``. Every rank's joined logits
+   must be the same, within 5e-2 of max|ref| of the tp = 1 forward, with the
+   last position's argmax margin within the transcript limit; each forward
+   launches 32 K2 per rank, all ``sm90``, on the rank's 32/tp heads. Per-rank
+   forward ms (events), the device time of one forward over all ranks beside
+   the tp = 1 forward's (``torch.profiler``), and K2 at each local-head shape
+   beside SDPA (phase 4's table). The autograd engine runs one device's
+   backward on one shared thread, so threads cannot run the backward;
+12. the train step at ``{tp: 2}`` in two processes on this one card over a
+   gloo group (NCCL refuses two ranks of one communicator on one GPU; gloo
+   stages CUDA tensors through the host): 3 Llama-3.2-1B steps from seed 0
+   on phase 7's batch, through ``make_llama_train_state`` /
+   ``make_llama_train_step``; both ranks' losses must be equal and within
+   1e-3 of phase 7's first three, with 16 ``sm90`` launches each of K2/K3/K4
+   per step on each rank; step seconds and peak memory per rank; then the
+   same run with ``copy_to_tp`` dropped (no column-parallel input's
+   gradient summed over tp), whose losses must miss that limit;
+13. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
    K3 and K4 are checked in phases 3-4 but run on no path; the ResNet and
    ring paths run none of K1-K4: the ResNet's convolutions are cuDNN's, as
    the JAX package's are XLA's, and the ring's blocks are plain PyTorch, as
    the JAX ring's are XLA einsums), then the ``nvidia-smi`` line;
-12. last line ``{"ok": true, "device": {...}}``.
+14. last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without CUDA, or run
 outside the repository, it fails at once.
@@ -121,6 +146,26 @@ RING_SIZES = (2, 4)
 RING_SHAPES = ((4, 32, 1024, 64), (1, 32, 8192, 64))
 RING_KV_HEADS = 8
 RING_BARRIER_TIMEOUT_S = 300
+# Tensor parallelism on virtual ranks: Llama-3-8B forwards of batch x
+# sequence tokens at each tp, the joined logits' limit relative to max|ref|
+# of the tp = 1 forward (the Llama smoke's flash-vs-einsum limit; only the
+# bf16 rounding of the row-parallel partial sums differs).
+TP_SIZES = (2, 4)
+TP_BATCH, TP_SEQ = 4, 1024
+TP_LOGIT_LIMIT = 5e-2
+TP_BARRIER_TIMEOUT_S = 300
+# Two processes on the one card at {tp: 2} over gloo: Llama-3.2-1B train
+# steps, held against phase 7's one-rank losses. bf16 compute rounds the
+# row-parallel sums differently: sound runs differ by up to 1.3e-4; the
+# limit sits between that and a planted fault (``GLOO_TP_FAULT``), which
+# must exceed it.
+GLOO_TP = 2
+GLOO_TP_STEPS = 3
+GLOO_TP_LOSS_TOL = 1e-3
+GLOO_TP_TIMEOUT_S = 600
+# The planted fault: Megatron's f dropped (``copy_to_tp`` the identity both
+# ways), so no column-parallel input's gradient is summed over the tp ranks.
+GLOO_TP_FAULT = "no-copy-to-tp"
 
 
 def fail(message: str) -> None:
@@ -295,22 +340,29 @@ def check_k2(torch, peaks) -> dict:
 
     timed = []
     # The Llama-3-8B smoke's no-cache forward (oracle 3), the Llama-3.2-1B
-    # training forward, a long sequence, then entry()'s tiny forward (D = 16,
-    # the simt kernel).
-    for B, H, S, D in ((4, 32, 63, 128), (4, 32, 1024, 64), (1, 32, 2048, 128), (2, 4, 16, 16)):
+    # training forward, a long sequence, entry()'s tiny forward (D = 16, the
+    # simt kernel), the 8B forward of phase 11 on its 32, 16 and 8 heads per
+    # rank (tp = 1, 2, 4), then phase 12's 1B step on its 16 heads per rank.
+    for B, H, S, D in ((4, 32, 63, 128), (4, 32, 1024, 64), (1, 32, 2048, 128), (2, 4, 16, 16),
+                       *((TP_BATCH, 32 // n, TP_SEQ, 128) for n in (1, *TP_SIZES)),
+                       (TRAIN_BATCH, 32 // GLOO_TP, TRAIN_SEQ, 64)):
         q, k, v = inputs(B, H, S, D, torch.bfloat16)
         err, variant = compare(q, k, v, True)
         ms = time_ms(lambda: flash_forward(q, k, v, True))
+        # The kernel's own time: at the small shapes the events may time the
+        # host's launch rate instead.
+        dev = device_ms(lambda: flash_forward(q, k, v, True))
         plain = time_ms(lambda: flash_forward_plain(q, k, v, True), iters=5, warmup=1)
         lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
         flops = 4.0 * B * H * D * S * (S + 1) / 2  # causal: S(S+1)/2 pairs
         nbytes = 4.0 * B * H * S * D * q.element_size() + B * H * S * 4
         b_ms, b_by = bound_ms(flops, nbytes, peaks["bf16"], peaks["bw"])
         say(f"K2 [{variant}] timing B={B} H={H} S={S} D={D} bf16 causal: "
-            f"kernel_ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
+            f"kernel_ms={ms:.4f} (device {fmt_ms(dev)}) plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
             f"bound_ms={b_ms:.5f} ({b_by}) tflops={flops / ms / 1e9:.1f}")
         timed.append(dict(variant=variant, shape=[B, H, S, D], max_abs_err=err, ms=ms,
-                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+                          device_ms=dev, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib))
     return timed
 
 
@@ -375,8 +427,10 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
     del q, k, v, g, got, want
 
     timed3, timed4 = [], []
-    # The Llama-3.2-1B training step's attention, then a long sequence.
-    for B, H, S, D in ((4, 32, 1024, 64), (1, 32, 2048, 128)):
+    # The Llama-3.2-1B training step's attention, a long sequence, then
+    # phase 12's 1B step on its 16 heads per rank.
+    for B, H, S, D in ((4, 32, 1024, 64), (1, 32, 2048, 128),
+                       (TRAIN_BATCH, 32 // GLOO_TP, TRAIN_SEQ, 64)):
         q, k, v, g = inputs(B, H, S, D, torch.bfloat16)
         errs, (v3, v4) = compare(q, k, v, g, True)
         out, lse = fa.flash_forward(q, k, v, True)
@@ -902,11 +956,294 @@ def check_ring(torch) -> None:
         torch.cuda.empty_cache()
 
 
+class ThreadTP:
+    """Virtual tp rank ``index`` of ``size`` threads on one card, in place of
+    ``GroupTP``'s process group: each exchange posts this rank's tensor with
+    an event on its stream, meets the others at the barrier, reads every
+    rank's tensor on its own stream once their events have passed (summing
+    or joining in rank order, so every rank gets the same bits), and meets
+    them again, so no rank posts the next exchange before every rank has
+    taken this one."""
+
+    def __init__(self, index: int, size: int, board: list, barrier):
+        self.index, self.size, self.board, self.barrier = index, size, board, barrier
+
+    def _exchange(self, t, combine):
+        import torch
+
+        stream = torch.cuda.current_stream()
+        posted = torch.cuda.Event()
+        posted.record(stream)
+        self.board[self.index] = (t, posted)
+        self.barrier.wait()
+        parts = []
+        for sent, event in list(self.board):
+            stream.wait_event(event)
+            sent.record_stream(stream)  # the sender may free it once we are past
+            parts.append(sent)
+        out = combine(parts)
+        self.barrier.wait()
+        return out
+
+    def all_reduce(self, t):
+        def total(parts):
+            out = parts[0].clone()
+            for part in parts[1:]:
+                out += part
+            return out
+
+        return self._exchange(t, total)
+
+    def all_gather(self, t, dim: int):
+        import torch
+
+        return self._exchange(t, lambda parts: torch.cat(parts, dim=dim))
+
+
+def run_tp(torch, models, tokens, streams):
+    """One forward of every tp rank's model on its own thread and stream:
+    each rank's logits and forward ms (CUDA events on its stream, waits
+    included)."""
+    import threading
+
+    n = len(models)
+    barrier = models[0].tp.barrier
+    results, errors = [None] * n, [None] * n
+
+    def rank(i: int) -> None:
+        try:
+            with torch.cuda.stream(streams[i]), torch.inference_mode():
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                logits, _ = models[i](tokens)
+                end.record()
+                results[i] = (logits, start, end)
+        except BaseException as e:  # a failed rank must not leave the others waiting
+            errors[i] = e
+            barrier.abort()
+
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    threads = [threading.Thread(target=rank, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    if any(e is not None for e in errors):
+        fail(f"tp={n}: ranks failed: {[repr(e) for e in errors]}")
+    return [r[0] for r in results], [r[1].elapsed_time(r[2]) for r in results]
+
+
+def check_tp(torch, k2_timed) -> dict:
+    """Phase 11: the tp Llama's per-rank forward on this card (see the
+    module docstring). Returns the launch counts of each forward checked,
+    by path."""
+    import gc
+    import threading
+
+    import numpy as np
+
+    from tpu_cc_manager_torch import ops
+    from tpu_cc_manager_torch.models.convert import shard_state_dict
+    from tpu_cc_manager_torch.models.llama import LlamaConfig, LlamaModel
+    from tpu_cc_manager_torch.smoke.llama_infer import argmax_shortfall
+
+    cfg = LlamaConfig.llama3_8b(param_dtype=torch.bfloat16)
+    if not cfg.resolved_use_flash("cuda"):
+        fail("the 8B tp forward must run flash attention")
+    L = cfg.n_layers
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (TP_BATCH, TP_SEQ))).to("cuda")
+    one = LlamaModel(cfg, device="cuda", seed=0)
+
+    def forward_one():
+        with torch.inference_mode():
+            return one(tokens)[0]
+
+    def counts() -> dict:
+        return {**ops.launch_counts(), **flat_variants(ops.variant_launch_counts())}
+
+    def want(n: int) -> dict:
+        k2 = L * n
+        return {"K1": 0, "K2": k2, "K3": 0, "K4": 0, "K1/sm90": 0, "K1/simt": 0,
+                "K2/sm90": k2, "K2/simt": 0, "K3/sm90": 0, "K3/simt": 0, "K4/sm90": 0,
+                "K4/simt": 0}
+
+    paths = {}
+    ops.reset_launch_counts()
+    ref = forward_one()
+    torch.cuda.synchronize()
+    paths["tp=1 forward"] = counts()
+    if paths["tp=1 forward"] != want(1):
+        fail(f"the 8B tp=1 forward launched {paths['tp=1 forward']}, want {want(1)}")
+    one_ms = time_ms(forward_one, iters=3, warmup=1)
+    one_dev = device_ms(forward_one, iters=2, warmup=0)
+    scale = float(ref.abs().max())
+    state = one.state_dict()
+    say(f"tp=1 Llama-3-8B forward (bf16 weights, flash, batch {TP_BATCH}x{TP_SEQ}): logits "
+        f"{tuple(ref.shape)} max|ref|={scale:.4f} forward_ms={one_ms:.2f} device_ms="
+        f"{fmt_ms(one_dev)} launches={paths['tp=1 forward']}")
+
+    k2_by_shape = {tuple(t["shape"]): t for t in k2_timed}
+    for n in TP_SIZES:
+        board, barrier = [None] * n, threading.Barrier(n, timeout=TP_BARRIER_TIMEOUT_S)
+        models = []
+        for i in range(n):
+            model = LlamaModel(cfg, device="cuda", seed=None, tp=ThreadTP(i, n, board, barrier))
+            model.load_state_dict(shard_state_dict(state, cfg, i, n), strict=True)
+            if model.blocks.attn.n_heads != cfg.n_heads // n:
+                fail(f"tp={n} rank {i} holds {model.blocks.attn.n_heads} heads")
+            models.append(model)
+        streams = [torch.cuda.Stream() for _ in range(n)]
+        ops.reset_launch_counts()
+        logits, _ = run_tp(torch, models, tokens, streams)
+        launches = counts()
+        paths[f"tp={n} forward, virtual ranks"] = launches
+        same = all(torch.equal(x, logits[0]) for x in logits[1:])
+        rel = float((logits[0] - ref).abs().max()) / scale
+        margin = argmax_shortfall(ref[:, -1], logits[0][:, -1].argmax(dim=-1))
+        del logits
+        fwd_ms = run_tp(torch, models, tokens, streams)[1]
+        busy = device_ms(lambda: run_tp(torch, models, tokens, streams), iters=2, warmup=0)
+        k2 = k2_by_shape[(TP_BATCH, cfg.n_heads // n, TP_SEQ, cfg.head_dim)]
+        ok = (same and rel <= TP_LOGIT_LIMIT and margin <= TRANSCRIPT_LIMIT
+              and launches == want(n))
+        say(f"tp={n} Llama-3-8B forward on {n} virtual ranks: logits rel_err={rel:.4e} (limit "
+            f"{TP_LOGIT_LIMIT:g}) ranks_identical={same} last-position argmax margin="
+            f"{margin:.6f} (limit {TRANSCRIPT_LIMIT:g}); per-rank forward_ms "
+            f"{[round(x, 2) for x in fwd_ms]}; device_ms of one forward, all ranks="
+            f"{fmt_ms(busy)} (tp=1: {fmt_ms(one_dev)}); K2 [{k2['variant']}] at "
+            f"{tuple(k2['shape'])} kernel_ms={k2['ms']:.4f} sdpa_ms={k2['library_ms']:.4f}; "
+            f"launches {launches} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"tp={n}: joined logits rel_err {rel:.4e}, margin {margin:.6f}, ranks "
+                 f"identical {same}, launches {launches} (want {want(n)})")
+        del models, board
+        gc.collect()
+        torch.cuda.empty_cache()
+    del one, state, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def gloo_tp_rank(fault: bool) -> int:
+    """One of the processes of :func:`check_gloo_tp_step` (rank and world
+    in torchrun's environment names): three Llama-3.2-1B train steps at
+    ``{tp: 2}`` on this card over a gloo group (NCCL refuses two ranks of
+    one communicator on one GPU; gloo stages the CUDA tensors through the
+    host), with ``GLOO_TP_FAULT`` planted if ``fault``. Prints one JSON
+    line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_cc_manager_torch import ops
+    from tpu_cc_manager_torch.models import llama
+    from tpu_cc_manager_torch.parallel.mesh import MeshSpec, make_mesh
+    from tpu_cc_manager_torch.parallel.train import make_llama_train_state, make_llama_train_step
+
+    if fault:
+        llama.copy_to_tp = lambda x, tp: x
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    mesh = make_mesh(MeshSpec(dp=1, tp=GLOO_TP), device_type="cuda")
+    cfg = llama.LlamaConfig.llama3_2_1b()
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    ).to("cuda")
+    state, shardings = make_llama_train_state(cfg, mesh, seed=0)
+    step = make_llama_train_step(cfg, mesh, shardings)
+    ops.reset_launch_counts()
+    losses, seconds = [], []
+    for _ in range(GLOO_TP_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    print(json.dumps({"rank": dist.get_rank(), "losses": losses, "seconds": seconds,
+                      "launches": {**ops.launch_counts(),
+                                   **flat_variants(ops.variant_launch_counts())},
+                      "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_gloo_tp(fault: bool, one_rank_losses) -> tuple[list[dict], list[float]]:
+    """The ``GLOO_TP`` processes of one phase-12 run: each rank's JSON line
+    and the losses' relative gaps to the one-rank step's. Fails if a rank
+    fails or hangs."""
+    from tpu_cc_manager_torch.utils.launch import run_ranks
+
+    cmd = [sys.executable, __file__, "--gloo-tp-child", GLOO_TP_FAULT if fault else "sound"]
+    try:
+        # Both ranks' steps peak at about 25 GB each on the one card:
+        # expandable segments keep their caches from fragmenting past it.
+        outs = run_ranks(cmd, GLOO_TP, GLOO_TP_TIMEOUT_S,
+                         env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"gloo tp={GLOO_TP}{' with ' + GLOO_TP_FAULT if fault else ''}: {e}")
+    results = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+    want = one_rank_losses[:GLOO_TP_STEPS]
+    return results, [abs(a - b) / abs(b) for a, b in zip(results[0]["losses"], want)]
+
+
+def check_gloo_tp_step(torch, one_rank_losses) -> dict:
+    """Phase 12: two processes on this one card train Llama-3.2-1B at
+    ``{tp: 2}`` over gloo; their losses must agree and match the one-rank
+    step's (phase 7) within ``GLOO_TP_LOSS_TOL``; the same run with
+    ``GLOO_TP_FAULT`` planted must not. Returns the launch counts of the
+    sound run's ranks together."""
+    import gc
+
+    # The ranks share the card with this process: hand back its cache first.
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"gloo tp={GLOO_TP}: this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB; "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free for the ranks")
+    results, rels = run_gloo_tp(False, one_rank_losses)
+    losses = results[0]["losses"]
+    want = one_rank_losses[:GLOO_TP_STEPS]
+    n = 16 * GLOO_TP_STEPS  # one K2, K3 and K4 per layer and step
+    per_rank = {"K1": 0, "K2": n, "K3": n, "K4": n, "K1/sm90": 0, "K1/simt": 0, "K2/sm90": n,
+                "K2/simt": 0, "K3/sm90": n, "K3/simt": 0, "K4/sm90": n, "K4/simt": 0}
+    same = all(r["losses"] == losses for r in results[1:])
+    ok = same and max(rels) <= GLOO_TP_LOSS_TOL and all(r["launches"] == per_rank
+                                                        for r in results)
+    say(f"gloo tp={GLOO_TP}, {GLOO_TP} processes on one card, Llama-3.2-1B train step: losses "
+        f"{[round(x, 6) for x in losses]} (other ranks {'identical' if same else 'DIFFERENT'}; "
+        f"one-rank {[round(x, 6) for x in want]}, rel {[f'{x:.2e}' for x in rels]}, limit "
+        f"{GLOO_TP_LOSS_TOL:g}); step seconds "
+        f"{[[round(x, 3) for x in r['seconds']] for r in results]}; max_memory_allocated_gb "
+        f"{[round(r['max_memory_allocated_gb'], 2) for r in results]}; launches per rank "
+        f"{[r['launches'] for r in results]} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"the {GLOO_TP}-process tp={GLOO_TP} train step over gloo disagrees with the "
+             f"one-rank step, or launched other than {per_rank} per rank")
+
+    faulty, fault_rels = run_gloo_tp(True, one_rank_losses)
+    caught = max(fault_rels) > GLOO_TP_LOSS_TOL
+    say(f"gloo tp={GLOO_TP} with {GLOO_TP_FAULT} planted: losses "
+        f"{[round(x, 6) for x in faulty[0]['losses']]} rel {[f'{x:.2e}' for x in fault_rels]} "
+        f"(limit {GLOO_TP_LOSS_TOL:g}; sound run {max(rels):.2e}): "
+        f"{'caught' if caught else 'MISSED'}")
+    if not caught:
+        fail(f"the gloo tp={GLOO_TP} loss limit {GLOO_TP_LOSS_TOL:g} misses {GLOO_TP_FAULT}")
+    return {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--only-kernels", action="store_true",
                    help="stop after building and checking the kernels (phases 1-4)")
+    p.add_argument("--gloo-tp-child", choices=("sound", GLOO_TP_FAULT),
+                   help="run as one process of phase 12 (the script starts these)")
     args = p.parse_args(argv)
+    if args.gloo_tp_child:
+        return gloo_tp_rank(args.gloo_tp_child == GLOO_TP_FAULT)
 
     import torch
 
@@ -1046,7 +1383,8 @@ def main(argv: list[str] | None = None) -> int:
 
     # --- 7. the parallel layer, Llama-3.2-1B training on it ----------------------
     mesh = check_parallel_layer()
-    paths["1b training"] = train_llama_1b(torch, peaks, mesh)["launches"]
+    train = train_llama_1b(torch, peaks, mesh)
+    paths["1b training"] = train["launches"]
 
     # --- 8. ResNet-50 smoke -----------------------------------------------------
     resnet_smoke(torch)
@@ -1059,7 +1397,14 @@ def main(argv: list[str] | None = None) -> int:
     # --- 10. ring attention on virtual ranks ---------------------------------------
     check_ring(torch)
 
-    # --- 11. kernel summary -----------------------------------------------------
+    # --- 11. tensor parallelism on virtual ranks -----------------------------------
+    paths.update(check_tp(torch, k2))
+
+    # --- 12. the tp=2 train step, two processes on this card over gloo -------------
+    paths[f"tp={GLOO_TP} train step, {GLOO_TP} processes"] = check_gloo_tp_step(
+        torch, train["losses"])
+
+    # --- 13. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -1085,7 +1430,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 12. last line ------------------------------------------------------------
+    # --- 14. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -11,8 +11,6 @@ the one-rank run.
 """
 
 import os
-import socket
-import subprocess
 import sys
 import types
 
@@ -34,15 +32,11 @@ from tpu_cc_manager_torch.parallel import sharding as tsharding
 from tpu_cc_manager_torch.parallel import train as ttrain
 from tpu_cc_manager_torch.parallel.checkpoint import TrainCheckpointer
 from tpu_cc_manager_torch.smoke import resnet_train
+from tpu_cc_manager_torch.utils.launch import LAUNCHER_ENV, run_ranks
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
 LR = 3e-4
 CHILD_TIMEOUT_S = 180
 ONE_THREAD_ENV = {"OMP_NUM_THREADS": "1"}
-LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK",
-                "JAX_NUM_PROCESSES", "JAX_PROCESS_ID", "JAX_COORDINATOR_ADDRESS",
-                "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID")
 
 
 @pytest.fixture(autouse=True)
@@ -228,9 +222,12 @@ def test_verify_dcn_mesh_one_rank():
 
 
 def test_train_state_refuses_tp_and_sp():
-    """tp > 1 waits for the head-sharded decoder layer; sp > 1 runs only with
-    the ring mesh in the config (tests/test_torch_ring.py trains at sp > 1)."""
-    for sizes, message in (((1, 1, 1, 1, 2), "ROADMAP.md, queue 1 item 2"),
+    """What is still refused: a tp that does not split the tiny model's
+    heads, KV heads, MLP width and vocab evenly (tests/test_torch_tp.py
+    trains at tp = 2 and 4), and sp > 1 without the ring mesh in the config
+    (tests/test_torch_ring.py trains at sp > 1). Both before any collective."""
+    for sizes, message in (((1, 1, 1, 1, 3), "tp=3 does not divide n_heads=4"),
+                           ((1, 1, 1, 1, 4), "tp=4 does not divide n_kv_heads=2"),
                            ((1, 1, 1, 2, 1), "ring_mesh=mesh")):
         mesh = types.SimpleNamespace(mesh_dim_names=tmesh.AXES, mesh=torch.empty(sizes))
         with pytest.raises(ValueError, match=message):
@@ -356,38 +353,11 @@ def child_main(outdir: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     outdir = tmp_path_factory.mktemp("two_ranks")
-    port = _free_port()
-    procs = []
-    for rank in range(2):
-        env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
-        env.update(ONE_THREAD_ENV)
-        env.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   PYTHONPATH=os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p))
-        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), str(outdir)],
-                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                      text=True))
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=CHILD_TIMEOUT_S)
-            outs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rc, out, err in outs:
-        assert rc == 0, f"child failed rc={rc}\nstdout:\n{out[-2000:]}\nstderr:\n{err[-4000:]}"
+    run_ranks([sys.executable, os.path.abspath(__file__), str(outdir)], 2, CHILD_TIMEOUT_S,
+              env=ONE_THREAD_ENV)
     return [torch.load(outdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
 
 

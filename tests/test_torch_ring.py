@@ -18,8 +18,6 @@ and 5e-2 for the Llama forward and gradients.
 import dataclasses
 import importlib
 import os
-import socket
-import subprocess
 import sys
 import types
 
@@ -40,16 +38,12 @@ from tpu_cc_manager_torch.parallel import distributed as tdist
 from tpu_cc_manager_torch.parallel import mesh as tmesh
 from tpu_cc_manager_torch.parallel import sharding as tsharding
 from tpu_cc_manager_torch.parallel import train as ttrain
+from tpu_cc_manager_torch.utils.launch import run_ranks
 
 # The module (the JAX package's ops/__init__ exports a function of its name).
 jring = importlib.import_module("tpu_cc_manager.ops.ring_attention")
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
 CHILD_TIMEOUT_S = 180
 ONE_THREAD_ENV = {"OMP_NUM_THREADS": "1"}
-LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK",
-                "JAX_NUM_PROCESSES", "JAX_PROCESS_ID", "JAX_COORDINATOR_ADDRESS",
-                "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID")
 LR = 3e-4
 # The ring op's inputs: GQA 4/2, a sequence of 32 split over 2 or 4 ranks.
 B, H, KV, S, D = 2, 4, 2, 32, 8
@@ -180,40 +174,13 @@ def child_main(outdir: str) -> None:
     dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def spawn_ranks(outdir, world: int) -> list[dict]:
     jcfg, tree = jax_llama()
     cfg = config_from_jax(jcfg)
     torch.save({"cfg": cfg, "params": params_from_jax(tree, cfg, "cpu")},
                os.path.join(outdir, "llama.pt"))
-    port = _free_port()
-    procs = []
-    for rank in range(world):
-        env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
-        env.update(ONE_THREAD_ENV)
-        env.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   PYTHONPATH=os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p))
-        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), str(outdir)],
-                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                      text=True))
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=CHILD_TIMEOUT_S)
-            outs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rc, out, err in outs:
-        assert rc == 0, f"child failed rc={rc}\nstdout:\n{out[-2000:]}\nstderr:\n{err[-4000:]}"
+    run_ranks([sys.executable, os.path.abspath(__file__), str(outdir)], world, CHILD_TIMEOUT_S,
+              env=ONE_THREAD_ENV)
     return [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 

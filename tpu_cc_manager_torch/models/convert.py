@@ -10,9 +10,11 @@ leaves, in the nesting ``tpu_cc_manager/models/convert.py`` produces::
 
 and returns a state dict for :class:`~tpu_cc_manager_torch.models.llama.LlamaModel`.
 Both sides keep one layout (stacked ``(L, in, out)`` projections), so the
-map only renames. Leaves must be float32 or float16 numpy arrays: cast bf16
-leaves to float32 first (numpy's bf16 comes from ``ml_dtypes``, which the
-port does not need). The Hugging Face loader comes in a later slice.
+map only renames. With ``tp_size`` > 1 it returns one tensor-parallel
+rank's shard (:func:`shard_state_dict`, which also cuts a one-rank state
+dict of the port for a rank). Leaves must be float32 or float16 numpy
+arrays: cast bf16 leaves to float32 first (numpy's bf16 comes from
+``ml_dtypes``, which the port does not need). The Hugging Face loader comes in a later slice.
 
 ``config_from_jax`` carries a JAX ``LlamaConfig``'s fields across:
 ``ring_axis`` but never ``ring_mesh`` (a JAX ``Mesh`` means nothing to
@@ -30,7 +32,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from tpu_cc_manager_torch.models.llama import LlamaConfig
+from tpu_cc_manager_torch.models.llama import TP_SHARD_DIMS, LlamaConfig, check_tp
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
@@ -52,10 +54,12 @@ def _float_leaf(path, leaf) -> np.ndarray:
     return arr
 
 
-def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig, device="cuda") -> dict:
+def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig, device="cuda",
+                    tp_index: int = 0, tp_size: int = 1) -> dict:
     """JAX ``variables`` (numpy leaves) -> the port's state dict, in
-    ``cfg.param_dtype`` on ``device``. A Dense's ``kernel`` leaf drops its
-    last path element (``blocks/attn/wq/kernel`` -> ``blocks.attn.wq``)."""
+    ``cfg.param_dtype`` on ``device``: tensor-parallel rank ``tp_index``'s
+    shard of ``tp_size``. A Dense's ``kernel`` leaf drops its last path
+    element (``blocks/attn/wq/kernel`` -> ``blocks.attn.wq``)."""
     params = tree.get("params", tree)
     state = {}
     for path, leaf in _flatten(params):
@@ -63,7 +67,26 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig, device="cuda") ->
         if path[-1] == "kernel":
             path = path[:-1]
         state[".".join(path)] = torch.tensor(arr, dtype=cfg.param_dtype, device=device)
-    return state
+    return shard_state_dict(state, cfg, tp_index, tp_size)
+
+
+def shard_state_dict(state: Mapping[str, torch.Tensor], cfg: LlamaConfig, index: int,
+                     size: int) -> dict:
+    """Tensor-parallel rank ``index``'s shard of a one-rank Llama state
+    dict over ``size`` ranks: each tensor cut along its
+    :data:`~tpu_cc_manager_torch.models.llama.TP_SHARD_DIMS` dim (views,
+    no copy), the replicated ones whole. Raises ``ValueError`` where
+    ``size`` does not divide the heads, KV heads, MLP width or vocab."""
+    check_tp(cfg, size)
+    out = {}
+    for name, t in state.items():
+        dim = TP_SHARD_DIMS[name]
+        if dim is None or size == 1:
+            out[name] = t
+        else:
+            n = t.shape[dim] // size
+            out[name] = t.narrow(dim, index * n, n)
+    return out
 
 
 # The JAX LlamaConfig fields with the same meaning in the port (the dtypes

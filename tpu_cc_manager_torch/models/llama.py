@@ -23,6 +23,14 @@ chunk of the sequence, RoPE phases start at the chunk's global offset
 (``rank_in_ring * S_local``), and attention is ring attention
 (``ops/ring_attention.py``) in the grouped KV layout, whatever ``use_flash``
 says.
+
+With ``tp`` (a tp exchange, ``parallel/tensor.py``) the model is tensor
+parallel over ``tp.size`` ranks, Megatron-style: each rank holds the shard
+:data:`TP_SHARD_DIMS` names of every projection (its ``H/tp`` query heads,
+``KV/tp`` KV heads, ``hidden/tp`` MLP columns, ``vocab/tp`` embedding rows
+and ``lm_head`` columns; the norm scales whole) and runs every attention
+path on its local heads. The GQA group size is unchanged, so a rank's query
+heads read its own KV heads. ``forward`` still returns the full logits.
 """
 
 from __future__ import annotations
@@ -33,11 +41,13 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpu_cc_manager_torch.ops.flash_attention import flash_attention
 from tpu_cc_manager_torch.ops.ring_attention import GroupRing, ring_attention
+from tpu_cc_manager_torch.parallel.tensor import copy_to_tp, gather_from_tp, reduce_from_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +190,44 @@ def matmul_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, b.shape[-1])
 
 
+# The dim of each parameter that tensor parallelism splits over ``tp``
+# (None: replicated), as the sharding rules put ``heads``, ``kv_heads``,
+# ``mlp`` and ``vocab`` on ``tp``; stacked parameters lead with ``L``.
+TP_SHARD_DIMS = {
+    "embedding": 0,
+    "blocks.attn_norm.scale": None,
+    "blocks.attn.wq": 2,
+    "blocks.attn.wk": 2,
+    "blocks.attn.wv": 2,
+    "blocks.attn.wo": 1,
+    "blocks.mlp_norm.scale": None,
+    "blocks.mlp.w_gate": 2,
+    "blocks.mlp.w_up": 2,
+    "blocks.mlp.w_down": 1,
+    "final_norm.scale": None,
+    "lm_head": 1,
+}
+
+
+def check_tp(cfg: LlamaConfig, size: int) -> None:
+    """Raise ``ValueError`` unless ``size`` ranks split the heads, the KV
+    heads, the MLP width and the vocabulary evenly."""
+    for field in ("n_heads", "n_kv_heads", "hidden_dim", "vocab_size"):
+        if getattr(cfg, field) % size:
+            raise ValueError(f"tp={size} does not divide {field}={getattr(cfg, field)}")
+
+
+def _tp_size(tp) -> int:
+    return 1 if tp is None else tp.size
+
+
+def _local(p: torch.Tensor) -> torch.Tensor:
+    """A parameter's local value: a DTensor's local shard (differentiably),
+    anything else as it is. The train state puts tp shards on the tp mesh
+    as DTensors (``parallel/train.py``)."""
+    return p.to_local() if isinstance(p, DTensor) else p
+
+
 def _stacked(L: int, *shape: int, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty((L, *shape), dtype=dtype, device=device))
 
@@ -197,34 +245,42 @@ class RMSNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, layer: int | None = None):
-        scale = self.scale if layer is None else self.scale[layer]
+        scale = _local(self.scale)
+        scale = scale if layer is None else scale[layer]
         x32 = x.float()
         normed = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
         return (normed * scale.float()).to(self.dtype)
 
 
 class Attention(nn.Module):
-    """GQA attention over stacked (L, in, out) projections."""
+    """GQA attention over stacked (L, in, out) projections; with ``tp``, on
+    this rank's query and KV heads (``wq``/``wk``/``wv`` column-parallel,
+    ``wo`` row-parallel)."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp=None):
         super().__init__()
-        L, H, KV, D = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        L, D = cfg.n_layers, cfg.head_dim
+        self.n_heads = cfg.n_heads // _tp_size(tp)
+        self.n_kv_heads = cfg.n_kv_heads // _tp_size(tp)
         kw = dict(dtype=cfg.param_dtype, device=device)
-        self.wq = _stacked(L, cfg.dim, H * D, **kw)
-        self.wk = _stacked(L, cfg.dim, KV * D, **kw)
-        self.wv = _stacked(L, cfg.dim, KV * D, **kw)
-        self.wo = _stacked(L, H * D, cfg.dim, **kw)
+        self.wq = _stacked(L, cfg.dim, self.n_heads * D, **kw)
+        self.wk = _stacked(L, cfg.dim, self.n_kv_heads * D, **kw)
+        self.wv = _stacked(L, cfg.dim, self.n_kv_heads * D, **kw)
+        self.wo = _stacked(L, self.n_heads * D, cfg.dim, **kw)
         self.cfg = cfg
+        self.tp = tp
 
     def forward(self, x, layer: int, phases, mask, layer_cache=None, position=None,
                 use_flash: bool = False, ring=None):
         cfg = self.cfg
         B, S, _ = x.shape
-        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        H, KV, D = self.n_heads, self.n_kv_heads, cfg.head_dim
         dt = cfg.dtype
-        q = (x @ self.wq[layer].to(dt)).reshape(B, S, H, D)
-        k = (x @ self.wk[layer].to(dt)).reshape(B, S, KV, D)
-        v = (x @ self.wv[layer].to(dt)).reshape(B, S, KV, D)
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
+        q = (x @ _local(self.wq)[layer].to(dt)).reshape(B, S, H, D)
+        k = (x @ _local(self.wk)[layer].to(dt)).reshape(B, S, KV, D)
+        v = (x @ _local(self.wv)[layer].to(dt)).reshape(B, S, KV, D)
         q = apply_rope(q, phases)
         k = apply_rope(k, phases)
 
@@ -238,61 +294,65 @@ class Attention(nn.Module):
             k_buf[:, start : start + S] = k.to(k_buf.dtype)
             v_buf[:, start : start + S] = v.to(v_buf.dtype)
             k, v = k_buf, v_buf
-        elif ring is not None:
+        G = H // KV
+        if ring is not None:
             # This rank's sequence chunk; K/V stay KV-head-shaped.
             out = ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), ring)
             out = out.transpose(1, 2).reshape(B, S, H * D).to(dt)
-            return out @ self.wo[layer].to(dt)
         elif use_flash:
             # Kernel layout (B, heads, S, D); GQA by kv-head repetition.
-            G = H // KV
             qf = q.transpose(1, 2).contiguous()
             kf = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
             vf = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
             out = flash_attention(qf, kf, vf)
             out = out.transpose(1, 2).reshape(B, S, H * D).to(dt)
-            return out @ self.wo[layer].to(dt)
-
-        # GQA: heads folded into (kv groups, group size), one einsum each way.
-        G = H // KV
-        qg = q.reshape(B, S, KV, G, D)
-        scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / math.sqrt(D)
-        scores = scores + mask
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(dt))
-        out = out.reshape(B, S, H * D)
-        return out @ self.wo[layer].to(dt)
+        else:
+            # GQA: heads folded into (kv groups, group size), one einsum each way.
+            qg = q.reshape(B, S, KV, G, D)
+            scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / math.sqrt(D)
+            scores = scores + mask
+            probs = torch.softmax(scores, dim=-1).to(dt)
+            out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(dt))
+            out = out.reshape(B, S, H * D)
+        out = out @ _local(self.wo)[layer].to(dt)
+        return out if self.tp is None else reduce_from_tp(out, self.tp)
 
 
 class MLP(nn.Module):
-    """SwiGLU over stacked (L, in, out) projections."""
+    """SwiGLU over stacked (L, in, out) projections; with ``tp``, on this
+    rank's ``hidden/tp`` columns (``w_gate``/``w_up`` column-parallel,
+    ``w_down`` row-parallel)."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp=None):
         super().__init__()
-        L = cfg.n_layers
+        L, hidden = cfg.n_layers, cfg.hidden_dim // _tp_size(tp)
         kw = dict(dtype=cfg.param_dtype, device=device)
-        self.w_gate = _stacked(L, cfg.dim, cfg.hidden_dim, **kw)
-        self.w_up = _stacked(L, cfg.dim, cfg.hidden_dim, **kw)
-        self.w_down = _stacked(L, cfg.hidden_dim, cfg.dim, **kw)
+        self.w_gate = _stacked(L, cfg.dim, hidden, **kw)
+        self.w_up = _stacked(L, cfg.dim, hidden, **kw)
+        self.w_down = _stacked(L, hidden, cfg.dim, **kw)
         self.dtype = cfg.dtype
+        self.tp = tp
 
     def forward(self, x, layer: int):
         dt = self.dtype
-        gate = x @ self.w_gate[layer].to(dt)
-        up = x @ self.w_up[layer].to(dt)
-        return (F.silu(gate) * up) @ self.w_down[layer].to(dt)
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
+        gate = x @ _local(self.w_gate)[layer].to(dt)
+        up = x @ _local(self.w_up)[layer].to(dt)
+        out = (F.silu(gate) * up) @ _local(self.w_down)[layer].to(dt)
+        return out if self.tp is None else reduce_from_tp(out, self.tp)
 
 
 class DecoderBlock(nn.Module):
     """All L decoder layers' parameters, stacked; ``forward`` runs one."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp=None):
         super().__init__()
         args = (cfg.dim, cfg.norm_eps, cfg.dtype, cfg.param_dtype, cfg.n_layers)
         self.attn_norm = RMSNorm(*args, device=device)
-        self.attn = Attention(cfg, device=device)
+        self.attn = Attention(cfg, device=device, tp=tp)
         self.mlp_norm = RMSNorm(*args, device=device)
-        self.mlp = MLP(cfg, device=device)
+        self.mlp = MLP(cfg, device=device, tp=tp)
 
     def forward(self, x, layer: int, phases, mask, layer_cache=None, position=None,
                 use_flash: bool = False, ring=None):
@@ -303,17 +363,24 @@ class DecoderBlock(nn.Module):
 
 class LlamaModel(nn.Module):
     """Decoder-only transformer; ``forward`` covers the full sequence
-    (cache=None) and cached prefill/decode (cache + position)."""
+    (cache=None) and cached prefill/decode (cache + position). With ``tp``
+    (an object with ``index``, ``size``, ``all_reduce`` and ``all_gather``:
+    ``parallel/tensor.py::GroupTP`` or a stand-in) this rank holds its tp
+    shard of every parameter."""
 
-    def __init__(self, cfg: LlamaConfig, device="cuda", seed: int | None = 0):
+    def __init__(self, cfg: LlamaConfig, device="cuda", seed: int | None = 0, tp=None):
         super().__init__()
+        if tp is not None:
+            check_tp(cfg, tp.size)
         self.cfg = cfg
+        self.tp = tp
+        vocab = cfg.vocab_size // _tp_size(tp)
         kw = dict(dtype=cfg.param_dtype, device=device)
-        self.embedding = nn.Parameter(torch.empty((cfg.vocab_size, cfg.dim), **kw))
-        self.blocks = DecoderBlock(cfg, device=device)
+        self.embedding = nn.Parameter(torch.empty((vocab, cfg.dim), **kw))
+        self.blocks = DecoderBlock(cfg, device=device, tp=tp)
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype, cfg.param_dtype,
                                   device=device)
-        self.lm_head = nn.Parameter(torch.empty((cfg.dim, cfg.vocab_size), **kw))
+        self.lm_head = nn.Parameter(torch.empty((cfg.dim, vocab), **kw))
         # The RoPE table is built once per model (131072 rows for 3.1-8B).
         self.register_buffer(
             "phases",
@@ -337,24 +404,40 @@ class LlamaModel(nn.Module):
         the flash and einsum paths alike, past what the smoke's argmax and
         flash oracles allow. Unit-gain projections keep the noise under
         those limits while the cache off-by-one still fails the transcript
-        oracle (``chip_smoke.py`` checks both at Llama-3-8B)."""
+        oracle (``chip_smoke.py`` checks both at Llama-3-8B).
+
+        With ``tp``, each rank draws every full (per-layer) slab in the same
+        generator sequence and keeps its shard, so the ranks' shards joined
+        are the one-rank model's weights from the same seed."""
+        size = _tp_size(self.tp)
         gen = torch.Generator(device=self.embedding.device).manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("scale"):
                 p.fill_(1.0)
                 continue
-            std = 0.02 if name == "embedding" else p.shape[-2] ** -0.5
+            dim = TP_SHARD_DIMS[name]
+            full = list(p.shape)
+            full[dim] *= size
+            std = 0.02 if name == "embedding" else full[-2] ** -0.5
+            part_dim = dim - (p.dim() - 2)  # the dim within one layer's slab
             for part in (p if p.dim() == 3 else [p]):
-                part.normal_(0.0, std, generator=gen)
+                if size == 1:
+                    part.normal_(0.0, std, generator=gen)
+                    continue
+                slab = torch.empty(full[-2:], dtype=p.dtype, device=p.device)
+                slab.normal_(0.0, std, generator=gen)
+                n = part.shape[part_dim]
+                part.copy_(slab.narrow(part_dim, self.tp.index * n, n))
 
     @property
     def device(self) -> torch.device:
         return self.embedding.device
 
     def init_cache(self, batch: int, max_len: int | None = None):
+        """Zeroed (K, V) buffers of this rank's KV heads (``KV/tp`` with tp)."""
         cfg = self.cfg
         max_len = max_len or cfg.max_seq_len
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (cfg.n_layers, batch, max_len, self.blocks.attn.n_kv_heads, cfg.head_dim)
         return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
                 torch.zeros(shape, dtype=cfg.dtype, device=self.device))
 
@@ -364,7 +447,7 @@ class LlamaModel(nn.Module):
         and no cache, ``tokens`` is this rank's chunk of the sequence."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embedding[tokens].to(cfg.dtype)
+        x = self._embed(tokens)
         dev = tokens.device
         ring = mask = None
         if cache is None and cfg.ring_mesh is not None:
@@ -401,8 +484,24 @@ class LlamaModel(nn.Module):
             else:
                 x = self.blocks(*args)
         x = self.final_norm(x)
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
         # bf16 params keep bf16 operands with an f32 result; f32 master
         # weights keep the full-f32 product.
         mm_dtype = cfg.dtype if cfg.param_dtype == cfg.dtype else torch.float32
-        logits = matmul_f32_out(x.to(mm_dtype), self.lm_head.to(mm_dtype))
+        logits = matmul_f32_out(x.to(mm_dtype), _local(self.lm_head).to(mm_dtype))
+        if self.tp is not None:
+            logits = gather_from_tp(logits, self.tp)
         return logits, cache
+
+    def _embed(self, tokens):
+        """The tokens' embedding rows in ``cfg.dtype``. With tp each rank
+        looks up the rows it owns, zeroes the rest, and the ranks sum."""
+        table = _local(self.embedding)
+        if self.tp is None:
+            return table[tokens].to(self.cfg.dtype)
+        rows = table.shape[0]
+        local = tokens - self.tp.index * rows
+        owned = (local >= 0) & (local < rows)
+        x = torch.where(owned[..., None], table[local.clamp(0, rows - 1)], 0.0)
+        return reduce_from_tp(x.to(self.cfg.dtype), self.tp)

@@ -23,6 +23,7 @@ import hashlib
 import os
 import pathlib
 import subprocess
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -54,6 +55,19 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "tcc_flash_bwd_dkv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
 }
+
+# Wrappers may launch from several threads at once (chip_smoke.py runs tp
+# ranks as threads of one card): the counts are read-modify-writes.
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, variant: str) -> None:
+    """One launch of ``wrapper``'s kernel ``variant``: add one to its
+    ``launches`` and ``launches_by_variant[variant]``."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.launches_by_variant[variant] += 1
+
 
 # Loaded libraries, one per source for the life of the process (a shared
 # library cannot be unloaded safely while kernels may still run).

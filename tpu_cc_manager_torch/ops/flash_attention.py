@@ -163,8 +163,7 @@ def flash_forward(q, k, v, causal: bool = True, block_q: int = 128,
         else:
             rc = lib.tcc_flash_fwd(*args, int(q.dtype == torch.bfloat16), stream)
     _build.check(rc, f"tcc_flash_fwd ({variant})")
-    flash_forward.launches += 1
-    flash_forward.launches_by_variant[variant] += 1
+    _build.count_launch(flash_forward, variant)
     return out, lse
 
 
@@ -342,8 +341,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True,
         else:
             rc = lib.tcc_flash_bwd_dq(*args, int(q.dtype == torch.bfloat16), stream)
     _build.check(rc, f"tcc_flash_bwd_dq ({variant})")
-    flash_backward_dq.launches += 1
-    flash_backward_dq.launches_by_variant[variant] += 1
+    _build.count_launch(flash_backward_dq, variant)
     return dq
 
 
@@ -370,8 +368,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True,
         else:
             rc = lib.tcc_flash_bwd_dkv(*args, int(q.dtype == torch.bfloat16), stream)
     _build.check(rc, f"tcc_flash_bwd_dkv ({variant})")
-    flash_backward_dkv.launches += 1
-    flash_backward_dkv.launches_by_variant[variant] += 1
+    _build.count_launch(flash_backward_dkv, variant)
     return dk, dv
 
 

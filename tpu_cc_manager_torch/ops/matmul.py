@@ -126,8 +126,7 @@ def _launch(a, b, blocks, out_dtype) -> torch.Tensor:
             rc = lib.tcc_matmul_f32(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
                                     K, N, N, out_bf16, stream)
     _build.check(rc, f"tcc_matmul ({variant})")
-    tiled_matmul.launches += 1
-    tiled_matmul.launches_by_variant[variant] += 1
+    _build.count_launch(tiled_matmul, variant)
     return out
 
 

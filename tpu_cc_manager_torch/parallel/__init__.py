@@ -3,7 +3,8 @@
 Port of ``tpu_cc_manager/parallel``: ``mesh.py`` (``DeviceMesh`` with the
 five axes), ``sharding.py`` (the logical-axis rules as DTensor placements),
 ``distributed.py`` (``torch.distributed`` bootstrap, ``verify_dcn_mesh``),
-``train.py`` (the Llama train step, FSDP2 over the data axes) and
+``tensor.py`` (the tp exchange and Megatron's f and g), ``train.py`` (the
+Llama train step, FSDP2 over the data axes, heads over ``tp``) and
 ``checkpoint.py`` (``torch.distributed.checkpoint``).
 """
 

@@ -98,19 +98,35 @@ def data_groups(mesh: DeviceMesh):
     return [mesh.get_group(a) for a in DATA_AXES], math.prod(sizes[a] for a in DATA_AXES)
 
 
-def data_mesh(mesh: DeviceMesh) -> DeviceMesh:
-    """The 2-D ``(replicate, shard)`` mesh of FSDP2's HSDP: ``dcn`` x ``dp``
-    x ``sp`` replicate, ``fsdp`` shards, so every parameter's gradient is
-    averaged over the sequence ranks too. Built from the 5-D mesh's rank
-    grid with the public constructor (``tp`` must be 1). The grid's axes are
-    ``(dcn, dp, fsdp, sp, tp)``: ``sp`` moves before ``fsdp`` before the
-    reshape, or a row of the result would mix fsdp and sp ranks."""
+def hsdp_grid(mesh: DeviceMesh) -> torch.Tensor:
+    """The 5-D mesh's rank grid as ``(replicate, shard, tp)``: ``dcn`` x
+    ``dp`` x ``sp`` replicate, ``fsdp`` shards. The grid's axes are ``(dcn,
+    dp, fsdp, sp, tp)``: ``sp`` moves before ``fsdp`` before the reshape, or
+    a row of the result would mix fsdp and sp ranks."""
     sizes = mesh_sizes(mesh)
-    if sizes["tp"] != 1:
-        raise ValueError("data_mesh: tp must be 1")
-    grid = mesh.mesh.permute(0, 1, 3, 2, 4).reshape(
-        sizes["dcn"] * sizes["dp"] * sizes["sp"], sizes["fsdp"])
-    return DeviceMesh(mesh.device_type, grid, mesh_dim_names=("replicate", "shard"))
+    return mesh.mesh.permute(0, 1, 3, 2, 4).reshape(
+        sizes["dcn"] * sizes["dp"] * sizes["sp"], sizes["fsdp"], sizes["tp"])
+
+
+def hsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """One 3-D ``DeviceMesh`` over :func:`hsdp_grid`, dims ``("replicate",
+    "shard", "tp")``, built with the public constructor. FSDP2 shards on its
+    ``["replicate", "shard"]`` slice (HSDP for this rank's ``tp``
+    coordinate: gradients are averaged over the sequence ranks too, never
+    over ``tp``) and tp shards live on its ``["tp"]`` slice: both must come
+    from this one mesh for FSDP2 to compose them."""
+    return DeviceMesh(mesh.device_type, hsdp_grid(mesh),
+                      mesh_dim_names=("replicate", "shard", "tp"))
+
+
+def state_placements(placements: tuple, mesh: DeviceMesh) -> tuple:
+    """A parameter's placements on the 5-D ``mesh`` (:func:`placements_for`)
+    as the train state holds them: on FSDP2's ``(replicate, shard)`` mesh,
+    then ``tp`` when ``tp`` > 1. The rules replicate every parameter over
+    ``dcn``, ``dp`` and ``sp``."""
+    by_axis = dict(zip(mesh.mesh_dim_names, placements))
+    held = (Replicate(), by_axis["fsdp"])
+    return held + (by_axis["tp"],) if mesh_sizes(mesh)["tp"] > 1 else held
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,10 +16,16 @@ included; the AdamW moments follow the parameter placements.
 Sequence parallelism (``sp`` > 1) needs ``cfg.ring_mesh`` set to the mesh,
 as the JAX dry run sets it: each rank then takes its rows of the batch and
 its contiguous chunk of the sequence, and the model's attention is ring
-attention over the ``sp`` group. Tensor parallelism (``tp`` > 1) needs the
-decoder layer to run on its local head shard, which the stacked
-``(L, in, out)`` parameters do not allow yet (``ROADMAP.md``, queue 1 item
-2), so the state refuses it.
+attention over the ``sp`` group.
+
+Tensor parallelism (``tp`` > 1): each rank builds its tp shard of the model
+(``models/llama.py``, collectives over the ``tp`` group through
+``parallel/tensor.py::GroupTP``) and every parameter becomes a DTensor on the
+``tp`` slice of one ``(replicate, shard, tp)`` mesh (``Shard`` on its tp dim,
+``Replicate`` for the norm scales) before FSDP2 shards it over the data
+slice of the same mesh. So each parameter is one DTensor of its global
+shape on three mesh dims: ``torch.distributed.checkpoint`` keys tensors by
+name, and plain local shards of different tp ranks would collide there.
 """
 
 from __future__ import annotations
@@ -28,19 +34,21 @@ import dataclasses
 
 import torch
 from torch.distributed.fsdp import fully_shard
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from tpu_cc_manager_torch.models.llama import LlamaConfig, LlamaModel
+from tpu_cc_manager_torch.models.llama import TP_SHARD_DIMS, LlamaConfig, LlamaModel, check_tp
 from tpu_cc_manager_torch.parallel.distributed import sum_over
 from tpu_cc_manager_torch.parallel.mesh import mesh_sizes
 from tpu_cc_manager_torch.parallel.sharding import (
     batch_sharding,
     data_groups,
-    data_mesh,
     fsdp_dim,
+    hsdp_mesh,
     placements_for,
     sequence_sharding,
+    state_placements,
 )
+from tpu_cc_manager_torch.parallel.tensor import GroupTP
 
 
 @dataclasses.dataclass
@@ -78,24 +86,38 @@ def make_llama_train_state(cfg: LlamaConfig, mesh, learning_rate: float = 3e-4,
     every parameter (optax's default has no mask). Returns the state and
     each parameter's placements on ``mesh`` (:func:`placements_for`)."""
     sizes = mesh_sizes(mesh)
-    if sizes["tp"] > 1:
-        raise ValueError(
-            f"make_llama_train_state: tp={sizes['tp']} must be 1; tensor parallelism "
-            "needs the decoder layer on its local head shard (ROADMAP.md, queue 1 item 2)"
-        )
     if sizes["sp"] > 1 and (cfg.ring_mesh != mesh or cfg.ring_axis != "sp"):
         raise ValueError(
             f"make_llama_train_state: sp={sizes['sp']} splits the sequence over the ring; "
             "pass cfg with ring_mesh=mesh and ring_axis='sp'"
         )
-    model = LlamaModel(cfg, device=mesh_device(mesh), seed=seed)
+    tp = None
+    if sizes["tp"] > 1:
+        check_tp(cfg, sizes["tp"])
+        tp = GroupTP(mesh.get_group("tp"))
+    model = LlamaModel(cfg, device=mesh_device(mesh), seed=seed, tp=tp)
+    hsdp = hsdp_mesh(mesh)
+    if tp is not None:
+        _place_on_tp(model, hsdp["tp"])
     names = {id(p): n for n, p in model.named_parameters()}
-    fully_shard(model, mesh=data_mesh(mesh),
+    fully_shard(model, mesh=hsdp["replicate", "shard"],
                 shard_placement_fn=lambda p: Shard(fsdp_dim(names[id(p)])))
     optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
                                   eps=1e-8, weight_decay=0.01)
     shardings = {name: placements_for(name, mesh) for name in names.values()}
     return TrainState(model, optimizer), shardings
+
+
+def _place_on_tp(model: torch.nn.Module, tp_mesh) -> None:
+    """Swap each parameter of a tp rank's model for a DTensor on
+    ``tp_mesh`` over the same local shard: ``Shard`` on its
+    :data:`TP_SHARD_DIMS` dim, ``Replicate`` where that is None."""
+    for name, p in list(model.named_parameters()):
+        dim = TP_SHARD_DIMS[name]
+        placement = Replicate() if dim is None else Shard(dim)
+        owner, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(owner), attr, torch.nn.Parameter(
+            DTensor.from_local(p.detach(), tp_mesh, [placement], run_check=False)))
 
 
 def make_llama_train_step(cfg: LlamaConfig, mesh, state_shardings: dict):
@@ -105,21 +127,22 @@ def make_llama_train_step(cfg: LlamaConfig, mesh, state_shardings: dict):
     and of both its chunk of the sequence (:func:`sequence_sharding`; S
     must divide by ``sp``, as ``32 * sp`` does in the JAX dry run). The loss
     returned is the mean over every data and sequence rank, the global
-    batch's mean. Parameters and moments are updated in place (the port's
-    form of the JAX step's ``donate_argnums=(0,)``); the gradients stay on
-    the parameters until the next step."""
+    batch's mean; the tp ranks of one data rank hold the same loss, so
+    ``tp`` is no part of the mean. Parameters and moments are updated in
+    place (the port's form of the JAX step's ``donate_argnums=(0,)``); the
+    gradients stay on the parameters until the next step."""
     rows = batch_sharding(mesh)
     chunk = sequence_sharding(mesh)
     groups, n_data = data_groups(mesh)
     if chunk.count > 1:
         groups, n_data = groups + [mesh.get_group("sp")], n_data * chunk.count
-    fsdp_axis = mesh.mesh_dim_names.index("fsdp")
+    held = {name: state_placements(p, mesh) for name, p in state_shardings.items()}
 
     def train_step(state: TrainState, tokens: torch.Tensor):
         if state.model.cfg != cfg:
             raise ValueError("train_step: the state's model was built for another config")
         for name, p in state.model.named_parameters():
-            if p.placements[-1] != state_shardings[name][fsdp_axis]:
+            if p.placements != held[name]:
                 raise ValueError(f"train_step: {name} is not sharded as state_shardings says")
         local = rows.local(tokens)
         inputs, targets = chunk.local(local[:, :-1]), chunk.local(local[:, 1:])

@@ -24,13 +24,13 @@ import logging
 import os
 import pathlib
 import shutil
-import socket
 import subprocess
 import sys
 import tempfile
 import time
 import traceback
 
+from tpu_cc_manager_torch.utils.launch import free_port
 from tpu_cc_manager_torch.utils.poll import poll_until
 
 log = logging.getLogger(__name__)
@@ -213,12 +213,6 @@ def _device_worker(body, dev, index: int, count: int, port: int, parent_pid: int
             torch.distributed.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_per_device(body, dev, count: int, **kwargs) -> list[dict]:
     """``body(device, index, count, **kwargs) -> dict`` once per device,
     results in device order. One device runs in this process; more run
@@ -235,7 +229,7 @@ def run_per_device(body, dev, count: int, **kwargs) -> list[dict]:
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    port = _free_port()
+    port = free_port()
     procs, conns = [], []
     for index in range(count):
         recv, send = ctx.Pipe(duplex=False)

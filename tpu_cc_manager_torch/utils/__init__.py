@@ -1,1 +1,1 @@
-"""Shared utilities of the port: card detection and polling."""
+"""Shared utilities of the port: card detection, polling and local ranks."""
