@@ -21,8 +21,9 @@ counts at 0 just before it and read just after:
    must take the wgmma kernel "sm90", the rest the CUDA-core kernel "simt");
    kernel / plain / SDPA / bound times and TFLOP/s at the 8B smoke's, the 1B
    training and a long shape, the simt kernel at ``entry()``'s shape, and
-   the shapes phases 11 and 12 give it (the 8B forward's 32, 16 and 8 heads,
-   the 1B step's 16 heads per rank); then K3 and K4 (the flash backward):
+   the shapes phases 11-14 give it (the 8B forward's 32, 16 and 8 heads,
+   the 1B step's 16 heads per rank, the 8B smoke's 16 heads per rank at
+   tp = 2); then K3 and K4 (the flash backward):
    gradients through the autograd Function against ``flash_backward_plain``
    on the same out and lse over the same grid, each case naming K3's and
    K4's kernels (as K2's), one f32 shape also against the autograd of
@@ -99,13 +100,35 @@ counts at 0 just before it and read just after:
    per step on each rank; step seconds and peak memory per rank; then the
    same run with ``copy_to_tp`` dropped (no column-parallel input's
    gradient summed over tp), whose losses must miss that limit;
-13. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+13. the Llama-3-8B smoke as one tp = 2 group, as a 4-card node runs each of
+   its groups: two processes on this card over gloo, each calling the
+   per-rank function the runner's workers call (``verify_replica`` with
+   ``tp=2``: its head shard, ``GroupTP`` over the pair), batch 4, prompt
+   32, decode 4 (phase 6's 32 cut for time). All three oracles must pass on
+   both ranks, the ranks must agree token for token (``combine_ranks``), and
+   each rank's no-cache forward must launch 32 ``sm90`` K2 on its 16 heads
+   at (4, 16, 35, 128); then the same with the cache off-by-one, which the
+   transcript oracle must catch. Its transcript margin is printed beside
+   phase 6's, its ms/token labelled gloo host staging (not NCCL);
+14. the Hugging Face loader at Llama-3.2-1B width: an HF-layout state dict
+   (``(out, in)`` bf16 tensors from a seed, tied, no ``lm_head.weight``) and
+   a ``SimpleNamespace`` with HF's field names and llama3 rope scaling,
+   converted onto the card by ``config_from_hf`` + ``hf_state_dict_to_params``
+   (seconds and the peak host RSS printed: no f32 copy of the model); the
+   same weights through this script's own numpy transpose and
+   ``params_from_jax`` must be the same tensors, and the flash forward of a
+   4 x 1024 batch on each must give the same logits, bit for bit (``wq`` and
+   ``wo`` are square, so only the logits catch a missed transpose);
+15. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
    K3 and K4 are checked in phases 3-4 but run on no path; the ResNet and
    ring paths run none of K1-K4: the ResNet's convolutions are cuDNN's, as
    the JAX package's are XLA's, and the ring's blocks are plain PyTorch, as
    the JAX ring's are XLA einsums), then the ``nvidia-smi`` line;
-14. last line ``{"ok": true, "device": {...}}``.
+16. last line ``{"ok": true, "device": {...}}``.
+
+Before phases 12 and 13, which start processes on this card, the script
+prints what its own process still holds there.
 
 Any failed phase exits non-zero before the last line. Without CUDA, or run
 outside the repository, it fails at once.
@@ -166,6 +189,25 @@ GLOO_TP_TIMEOUT_S = 600
 # The planted fault: Megatron's f dropped (``copy_to_tp`` the identity both
 # ways), so no column-parallel input's gradient is summed over the tp ranks.
 GLOO_TP_FAULT = "no-copy-to-tp"
+# The Llama smoke (phase 6's) as one tp = GLOO_TP group in GLOO_TP processes
+# on this card over gloo; each rank runs it clean, then with the cache
+# off-by-one.
+SMOKE_SIZE = "llama3-8b"
+# Phase 6's decode of 32 is cut to 4 here: over gloo on one card a decode
+# step took 0.13-0.35 s (an H100 80GB HBM3 at 700 W), and the smoke's timed
+# decode alone runs 20 x decode steps, so 32 took 455 s for both runs.
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_DECODE = 4, 32, 4
+SMOKE_HEADS, SMOKE_HEAD_DIM = 32, 128  # Llama-3-8B's
+GLOO_SMOKE_TIMEOUT_S = 600
+# The Hugging Face loader at the published Llama-3.2-1B geometry (its
+# config.json's fields), tied embeddings, and the batch of its forward.
+HF_1B_CONFIG = dict(
+    vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
+    num_attention_heads=32, num_key_value_heads=8, max_position_embeddings=131072,
+    rope_theta=500000.0, rms_norm_eps=1e-5, tie_word_embeddings=True,
+    rope_scaling={"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+                  "high_freq_factor": 4.0, "original_max_position_embeddings": 8192})
+HF_BATCH, HF_SEQ = 4, 1024
 
 
 def fail(message: str) -> None:
@@ -218,6 +260,20 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float | None:
 
 def fmt_ms(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def free_thread_workspaces(torch) -> None:
+    """Hand back what the virtual ranks' threads left on the card. cuBLAS
+    keeps a 32 MiB workspace for every (handle, stream) pair it has served,
+    for the life of the process, and each was carved from whatever cached
+    segment was free: phases 10 and 11's threads, each on streams of its own,
+    left 1.45 GB of them pinning 8.21 GB of segments on an H100 80GB HBM3."""
+    import gc
+
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float, peak_bw: float):
@@ -342,10 +398,15 @@ def check_k2(torch, peaks) -> dict:
     # The Llama-3-8B smoke's no-cache forward (oracle 3), the Llama-3.2-1B
     # training forward, a long sequence, entry()'s tiny forward (D = 16, the
     # simt kernel), the 8B forward of phase 11 on its 32, 16 and 8 heads per
-    # rank (tp = 1, 2, 4), then phase 12's 1B step on its 16 heads per rank.
+    # rank (tp = 1, 2, 4), phase 12's 1B step on its 16 heads per rank, then
+    # phase 13's 8B smoke on its 16 heads per rank (the no-cache forward of
+    # its transcript, prompt + decode - 1 tokens). Phase 14's 1B forward is
+    # the 1B training shape.
     for B, H, S, D in ((4, 32, 63, 128), (4, 32, 1024, 64), (1, 32, 2048, 128), (2, 4, 16, 16),
                        *((TP_BATCH, 32 // n, TP_SEQ, 128) for n in (1, *TP_SIZES)),
-                       (TRAIN_BATCH, 32 // GLOO_TP, TRAIN_SEQ, 64)):
+                       (TRAIN_BATCH, 32 // GLOO_TP, TRAIN_SEQ, 64),
+                       (SMOKE_BATCH, SMOKE_HEADS // GLOO_TP, SMOKE_PROMPT + SMOKE_DECODE - 1,
+                        SMOKE_HEAD_DIM)):
         q, k, v = inputs(B, H, S, D, torch.bfloat16)
         err, variant = compare(q, k, v, True)
         ms = time_ms(lambda: flash_forward(q, k, v, True))
@@ -483,6 +544,14 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
 def flat_variants(by_variant: dict) -> dict:
     """``ops.variant_launch_counts()`` as flat ``"K2/sm90"``-style keys."""
     return {f"{k}/{v}": n for k, counts in by_variant.items() for v, n in counts.items()}
+
+
+def k2_launches(n: int) -> dict:
+    """The counts of a path that launches ``n`` K2, all on its sm90 kernel,
+    and nothing else."""
+    counts = dict.fromkeys(("K1", "K3", "K4", "K1/sm90", "K1/simt", "K2/simt", "K3/sm90",
+                            "K3/simt", "K4/sm90", "K4/simt"), 0)
+    return {**counts, "K2": n, "K2/sm90": n}
 
 
 def check_devices(label: str, res: dict, want: int) -> None:
@@ -954,6 +1023,7 @@ def check_ring(torch) -> None:
         del q, k, v, g, kr, vr, out, lse, delta, args, sdpa_leaves
         gc.collect()
         torch.cuda.empty_cache()
+    free_thread_workspaces(torch)
 
 
 class ThreadTP:
@@ -1065,10 +1135,7 @@ def check_tp(torch, k2_timed) -> dict:
         return {**ops.launch_counts(), **flat_variants(ops.variant_launch_counts())}
 
     def want(n: int) -> dict:
-        k2 = L * n
-        return {"K1": 0, "K2": k2, "K3": 0, "K4": 0, "K1/sm90": 0, "K1/simt": 0,
-                "K2/sm90": k2, "K2/simt": 0, "K3/sm90": 0, "K3/simt": 0, "K4/sm90": 0,
-                "K4/simt": 0}
+        return k2_launches(L * n)
 
     paths = {}
     ops.reset_launch_counts()
@@ -1123,8 +1190,7 @@ def check_tp(torch, k2_timed) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     del one, state, ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_thread_workspaces(torch)
     return paths
 
 
@@ -1196,14 +1262,8 @@ def check_gloo_tp_step(torch, one_rank_losses) -> dict:
     step's (phase 7) within ``GLOO_TP_LOSS_TOL``; the same run with
     ``GLOO_TP_FAULT`` planted must not. Returns the launch counts of the
     sound run's ranks together."""
-    import gc
-
     # The ranks share the card with this process: hand back its cache first.
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    say(f"gloo tp={GLOO_TP}: this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB; "
-        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free for the ranks")
+    report_memory(torch, f"gloo tp={GLOO_TP}")
     results, rels = run_gloo_tp(False, one_rank_losses)
     losses = results[0]["losses"]
     want = one_rank_losses[:GLOO_TP_STEPS]
@@ -1235,15 +1295,278 @@ def check_gloo_tp_step(torch, one_rank_losses) -> dict:
     return {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
 
 
+def report_memory(torch, label: str) -> None:
+    """What this process still holds on the card, printed before a phase
+    that starts other processes on it (after emptying its cache)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"{label}: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; {free / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB free on the card")
+
+
+def gloo_smoke_rank() -> int:
+    """One of the processes of :func:`check_gloo_smoke` (rank and world in
+    torchrun's environment names): the Llama smoke's per-rank function at
+    ``tp=GLOO_TP`` on this card over a gloo group, clean and then with the
+    cache off-by-one. Prints one JSON line: both results."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_cc_manager_torch.smoke.llama_infer import verify_replica
+
+    torch.cuda.set_device(0)
+    # gloo first: the smoke's own bootstrap would ask for NCCL, which refuses
+    # two ranks of one communicator on one GPU.
+    dist.init_process_group("gloo")
+    runs = []
+    for offset in (0, 1):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = verify_replica(torch.device("cuda", 0), dist.get_rank(), dist.get_world_size(),
+                                size=SMOKE_SIZE, batch=SMOKE_BATCH, prompt_len=SMOKE_PROMPT,
+                                decode_len=SMOKE_DECODE, seed=0, cache_position_offset=offset,
+                                tp=GLOO_TP)
+        result.update(wall_s=time.perf_counter() - t0,
+                      max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        runs.append(result)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps(runs), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_gloo_smoke(torch, one_card: dict) -> dict:
+    """Phase 13: the Llama-3-8B smoke as one tp group of ``GLOO_TP``
+    processes on this card over gloo (see the module docstring). Returns the
+    clean run's launches of both ranks together."""
+    from tpu_cc_manager_torch.models.llama import LlamaConfig
+    from tpu_cc_manager_torch.smoke.llama_infer import combine_ranks
+    from tpu_cc_manager_torch.utils.launch import run_ranks
+
+    report_memory(torch, f"llama smoke tp={GLOO_TP}")
+    t0 = time.perf_counter()
+    try:
+        outs = run_ranks([sys.executable, __file__, "--gloo-smoke-child"], GLOO_TP,
+                         GLOO_SMOKE_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"llama smoke tp={GLOO_TP} over gloo: {e}")
+    wall_s = time.perf_counter() - t0
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+    clean = combine_ranks([r[0] for r in ranks], GLOO_TP)
+    faulty = combine_ranks([r[1] for r in ranks], GLOO_TP)
+    per_rank = [{**r[0]["kernel_launches"], **flat_variants(r[0]["kernel_launches_by_variant"])}
+                for r in ranks]
+    want = k2_launches(LlamaConfig.llama3_8b().n_layers)  # one flash forward
+    rel = clean["flash_kernel_rel_err"]
+    # ok: every rank's three oracles (flash within 5e-2) and the ranks agreeing.
+    ok = clean["ok"] and rel is not None and all(c == want for c in per_rank)
+    say(f"llama smoke tp={GLOO_TP}, {GLOO_TP} processes on one card over gloo ({SMOKE_SIZE}, "
+        f"batch {SMOKE_BATCH}, prompt {SMOKE_PROMPT}, decode {SMOKE_DECODE}): ok={clean['ok']} "
+        f"oracle_ok={clean['oracle_ok']} transcript_ok={clean['transcript_ok']} "
+        f"disagreeing_devices={clean['disagreeing_devices']} "
+        f"transcript_margin={clean['transcript_margin']} "
+        f"(limit {TRANSCRIPT_LIMIT:g}; phase 6 on one card: {one_card['transcript_margin']}) "
+        f"flash_kernel_rel_err={rel} (phase 6: {one_card['flash_kernel_rel_err']}); "
+        f"ms_per_token={clean['ms_per_token']} over gloo host staging, not NCCL (phase 6 on one "
+        f"card: {one_card['ms_per_token']}); prefill_tokens_per_sec="
+        f"{clean['prefill_tokens_per_sec']}; per rank: wall_s "
+        f"{[[round(run['wall_s'], 2) for run in r] for r in ranks]} max_memory_allocated_gb "
+        f"{[[round(run['max_memory_allocated_gb'], 2) for run in r] for r in ranks]}; launches "
+        f"per rank {per_rank}; both runs {wall_s:.2f}s {'ok' if ok else 'MISMATCH'}")
+    say(f"llama smoke tp={GLOO_TP} per_device={json.dumps(clean['per_device'])}")
+    if not ok:
+        fail(f"the tp={GLOO_TP} Llama smoke over gloo failed its oracles, its ranks disagree, "
+             f"or a rank launched other than {want}: {clean}")
+    caught = not faulty["ok"] and not faulty["transcript_ok"]
+    say(f"llama smoke tp={GLOO_TP} with cache_position_offset=1: ok={faulty['ok']} "
+        f"transcript_ok={faulty['transcript_ok']} transcript_margin="
+        f"{faulty['transcript_margin']} (limit {TRANSCRIPT_LIMIT:g}; clean run "
+        f"{clean['transcript_margin']}) disagreeing_devices={faulty['disagreeing_devices']}: "
+        f"{'caught' if caught else 'MISSED'}")
+    if not caught:
+        fail(f"the tp={GLOO_TP} transcript oracle missed the cache off-by-one")
+    return {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+
+
+def hf_state_dict(torch, hf) -> dict:
+    """An HF ``LlamaForCausalLM`` state dict of ``hf``'s geometry, as a
+    tied checkpoint loads it: bf16 host tensors, projections ``(out, in)``,
+    no ``lm_head.weight``; projections normal(0, 1/sqrt(in)), the embedding
+    normal(0, 0.02), norm scales normal(1, 0.1), from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def draw(shape, std, mean=0.0):
+        t = torch.randn(shape, generator=gen, device="cuda").mul_(std).add_(mean)
+        return t.to(torch.bfloat16).cpu()
+
+    dim, inter = hf.hidden_size, hf.intermediate_size
+    kv = hf.num_key_value_heads * dim // hf.num_attention_heads
+    shapes = {"self_attn.q_proj": (dim, dim), "self_attn.k_proj": (kv, dim),
+              "self_attn.v_proj": (kv, dim), "self_attn.o_proj": (dim, dim),
+              "mlp.gate_proj": (inter, dim), "mlp.up_proj": (inter, dim),
+              "mlp.down_proj": (dim, inter)}
+    sd = {"model.embed_tokens.weight": draw((hf.vocab_size, dim), 0.02)}
+    for i in range(hf.num_hidden_layers):
+        for name, shape in shapes.items():
+            sd[f"model.layers.{i}.{name}.weight"] = draw(shape, shape[1] ** -0.5)
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"model.layers.{i}.{name}.weight"] = draw((dim,), 0.1, 1.0)
+    sd["model.norm.weight"] = draw((dim,), 0.1, 1.0)
+    return sd
+
+
+def jax_layout(sd: dict, layers: int) -> dict:
+    """The JAX package's ``variables`` for the same weights, numpy f32:
+    this script's own transpose of each ``(out, in)`` projection and its
+    own stacking (what ``params_from_jax`` is then given)."""
+    import numpy as np
+
+    def arr(key):
+        return sd[key].float().numpy()
+
+    def stack(name, transpose=True):
+        return np.stack([arr(f"model.layers.{i}.{name}.weight").T if transpose
+                         else arr(f"model.layers.{i}.{name}.weight") for i in range(layers)])
+
+    embed = arr("model.embed_tokens.weight")
+    return {"params": {
+        "embedding": embed, "lm_head": np.ascontiguousarray(embed.T),
+        "final_norm": {"scale": arr("model.norm.weight")},
+        "blocks": {
+            "attn": {n: {"kernel": stack(f"self_attn.{h}")} for n, h in
+                     (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj"))},
+            "attn_norm": {"scale": stack("input_layernorm", False)},
+            "mlp_norm": {"scale": stack("post_attention_layernorm", False)},
+            "mlp": {n: {"kernel": stack(f"mlp.{h}")} for n, h in
+                    (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj"))},
+        }}}
+
+
+def host_rss() -> int:
+    """This process's resident set (``VmRSS``), in bytes."""
+    with open("/proc/self/status", encoding="ascii") as f:
+        line = next(line for line in f if line.startswith("VmRSS:"))
+    return int(line.split()[1]) * 1024
+
+
+def peak_rss_during(fn):
+    """``fn()``'s result and the largest resident set sampled every
+    millisecond while it ran (the card's machine has no ``VmHWM`` to
+    reset)."""
+    import threading
+
+    peak = [host_rss()]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(1e-3):
+            peak[0] = max(peak[0], host_rss())
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    try:
+        result = fn()
+    finally:
+        done.set()
+        sampler.join()
+    return result, max(peak[0], host_rss())
+
+
+def check_hf_loader(torch) -> dict:
+    """Phase 14: the Hugging Face loader at Llama-3.2-1B width (see the
+    module docstring). Returns the launches of the converted model's
+    forward."""
+    import gc
+    import types
+
+    import numpy as np
+
+    from tpu_cc_manager_torch import ops
+    from tpu_cc_manager_torch.models.convert import (
+        config_from_hf,
+        hf_state_dict_to_params,
+        params_from_jax,
+    )
+    from tpu_cc_manager_torch.models.llama import LlamaConfig, LlamaModel
+
+    hf = types.SimpleNamespace(**HF_1B_CONFIG)
+    cfg = config_from_hf(hf, param_dtype=torch.bfloat16)
+    if cfg != LlamaConfig.llama3_2_1b(param_dtype=torch.bfloat16):
+        fail(f"config_from_hf of the published Llama-3.2-1B config gave {cfg}")
+    sd = hf_state_dict(torch, hf)
+    hf_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    rss = host_rss()
+
+    def convert():
+        t0 = time.perf_counter()
+        out = hf_state_dict_to_params(sd, cfg, device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (state, convert_s), peak = peak_rss_during(convert)
+    growth = peak - rss
+    say(f"hf loader (Llama-3.2-1B, {cfg.param_count()} params, tied, llama3 rope scaling): "
+        f"{hf_bytes / 1e9:.2f} GB of bf16 HF tensors converted onto the card in "
+        f"{convert_s:.3f}s; host RSS {rss / 1e9:.2f} GB before, peak {peak / 1e9:.2f} GB "
+        f"during (sampled every ms): +{growth / 1e9:.3f} GB, where an f32 copy of the model "
+        f"would add {2 * hf_bytes / 1e9:.2f} GB")
+    if growth >= 2 * hf_bytes:
+        fail(f"hf_state_dict_to_params grew the host RSS by {growth / 1e9:.2f} GB: an f32 copy")
+
+    ref = params_from_jax(jax_layout(sd, cfg.n_layers), cfg, device="cuda")
+    del sd
+    differ = [k for k in ref if not torch.equal(state[k], ref[k])]
+    tokens = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (HF_BATCH, HF_SEQ))).to("cuda")
+    model = LlamaModel(cfg, device="cuda", seed=None)
+
+    def forward(weights):
+        model.load_state_dict(weights, strict=True)
+        with torch.inference_mode():
+            return model(tokens)[0]
+
+    ops.reset_launch_counts()
+    got = forward(state)
+    torch.cuda.synchronize()
+    launches = {**ops.launch_counts(), **flat_variants(ops.variant_launch_counts())}
+    want = forward(ref)
+    same = torch.equal(got, want)
+    finite = bool(torch.isfinite(got).all())
+    ok = not differ and same and finite and launches == k2_launches(cfg.n_layers)
+    say(f"hf loader: {len(ref) - len(differ)}/{len(ref)} tensors equal to params_from_jax of "
+        f"this script's numpy transpose; flash forward {HF_BATCH}x{HF_SEQ}: logits "
+        f"{tuple(got.shape)} finite={finite} bit-equal={same} (max abs diff "
+        f"{float((got - want).abs().max()):.3e}); launches {launches} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"the HF loader's weights or logits differ from the params_from_jax route: "
+             f"tensors {differ}, logits equal {same}, launches {launches}")
+    del state, ref, model, got, want, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--only-kernels", action="store_true",
                    help="stop after building and checking the kernels (phases 1-4)")
     p.add_argument("--gloo-tp-child", choices=("sound", GLOO_TP_FAULT),
                    help="run as one process of phase 12 (the script starts these)")
+    p.add_argument("--gloo-smoke-child", action="store_true",
+                   help="run as one process of phase 13 (the script starts these)")
     args = p.parse_args(argv)
     if args.gloo_tp_child:
         return gloo_tp_rank(args.gloo_tp_child == GLOO_TP_FAULT)
+    if args.gloo_smoke_child:
+        return gloo_smoke_rank()
 
     import torch
 
@@ -1338,6 +1661,7 @@ def main(argv: list[str] | None = None) -> int:
             "kernel_launches")}))
     say(f"llama smoke: devices={res['devices']} per_device={json.dumps(res['per_device'])}")
     check_devices("llama smoke", res, torch.cuda.device_count())
+    llama_one_card = res
     rel = res.get("flash_kernel_rel_err")
     if not (res["ok"] and res["oracle_ok"] and res["transcript_ok"]
             and rel is not None and rel < 5e-2):
@@ -1404,7 +1728,14 @@ def main(argv: list[str] | None = None) -> int:
     paths[f"tp={GLOO_TP} train step, {GLOO_TP} processes"] = check_gloo_tp_step(
         torch, train["losses"])
 
-    # --- 13. kernel summary -----------------------------------------------------
+    # --- 13. the 8B smoke as one tp=2 group, two processes over gloo ---------------
+    paths[f"llama smoke tp={GLOO_TP}, {GLOO_TP} processes"] = check_gloo_smoke(torch,
+                                                                             llama_one_card)
+
+    # --- 14. the Hugging Face loader at Llama-3.2-1B width --------------------------
+    paths["hf loader 1b forward"] = check_hf_loader(torch)
+
+    # --- 15. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -1430,7 +1761,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 14. last line ------------------------------------------------------------
+    # --- 16. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -11,10 +11,19 @@ oracles and result keys:
    path within a relative 5e-2 on the logits (when flash is the default
    path, i.e. on the card).
 
-The smoke runs one replica on every visible card, each with all three
-oracles (the JAX smoke shards one model over every device; tensor
-parallelism over heads is not ported yet), and passes only when every card
-does. Oracles 1 and 2 pin the einsum path so cache-position correctness stays
+The cards are laid out as the JAX smoke's mesh lays out its devices
+(``default_spec_for(n, want_tp=n > 1)``): tp = 4 when 4 divides the count
+and the count is larger, else tp = 2 on the same rule, else tp = 1, and the
+rest in groups of tp cards. On 1-3 cards each card runs a whole replica; on
+4, two groups of tp = 2; on 8, two groups of tp = 4. Each rank of a group
+holds its head shard of the model (``models/llama.py``, ``GroupTP`` over the
+group) and runs all three oracles on the joined logits; a fourth oracle
+holds the ranks of a group to the same greedy transcript and margins. Every
+group runs the whole batch, so each group's verdict covers the same work;
+the JAX smoke instead splits its global batch over the data axis. The smoke
+passes only when every rank does.
+
+Oracles 1 and 2 pin the einsum path so cache-position correctness stays
 separate from kernel choice; every oracle starts from a fresh cache. The
 timed decode reuses one post-prefill cache across repetitions: each
 repetition rewrites every position it reads, and later positions are
@@ -29,10 +38,14 @@ import statistics
 import time
 
 import torch
+import torch.distributed as dist
 
 from tpu_cc_manager_torch import ops
-from tpu_cc_manager_torch.models.llama import LlamaConfig, LlamaModel
+from tpu_cc_manager_torch.models.llama import LlamaConfig, LlamaModel, check_tp
 from tpu_cc_manager_torch.ops import _build
+from tpu_cc_manager_torch.parallel.distributed import bootstrap
+from tpu_cc_manager_torch.parallel.mesh import default_spec_for
+from tpu_cc_manager_torch.parallel.tensor import GroupTP
 from tpu_cc_manager_torch.smoke.runner import (
     SmokeConfigError,
     await_dispatch_gate,
@@ -97,14 +110,20 @@ def run(
     device: str = "cuda",
     n_devices: int | None = None,
 ) -> dict:
-    """One replica on every visible card (``n_devices`` overrides the
-    count), each with all three oracles; the smoke passes only when every
-    card does. ``cache_position_offset`` is a test-only fault hook: it shifts
-    every cached-decode position, emulating the off-by-one cache-indexing
-    bug the transcript oracle exists to catch."""
+    """Every visible card (``n_devices`` overrides the count) in groups of
+    tp cards, as the module docstring lays them out; every rank runs all
+    three oracles, and the smoke passes only when every rank does and the
+    ranks of each group agree. ``cache_position_offset`` is a test-only
+    fault hook: it shifts every cached-decode position, emulating the
+    off-by-one cache-indexing bug the transcript oracle exists to catch."""
     dev = resolve_device(device)
     size, cfg = _pick_config(size, dev.type)
     count = device_count(dev, n_devices)
+    tp = default_spec_for(count, want_tp=count > 1).tp
+    try:
+        check_tp(cfg, tp)
+    except ValueError as e:
+        raise SmokeConfigError(f"llama smoke size {size!r} on {count} devices: {e}") from e
 
     # COMPILE→DISPATCH boundary: the K2 library builds under a warmup gate;
     # the weights are the first device allocation.
@@ -113,36 +132,82 @@ def run(
     await_dispatch_gate(compile_fns=compile_fns)
     results = run_per_device(verify_replica, dev, count, size=size, batch=batch,
                              prompt_len=prompt_len, decode_len=decode_len, seed=seed,
-                             cache_position_offset=cache_position_offset)
-    # The worst card's oracle values and the slowest card's speed; the
-    # launches of every card together.
+                             cache_position_offset=cache_position_offset, tp=tp)
+    return combine_ranks(results, tp)
+
+
+# Each card's oracles, speed and K2 launches in the combined result (with
+# tp > 1 also its ``group`` and its ``tp_rank`` in the group).
+PER_DEVICE_KEYS = ("device_name", "ok", "oracle_ok", "transcript_ok", "transcript_margin",
+                   "flash_kernel_rel_err", "tokens_per_sec", "kernel_launches")
+# What the ranks of one tp group must agree on: they decode from the same
+# joined logits, so every token and margin is the same bits.
+AGREEMENT_KEYS = ("transcript", "transcript_margin", "flash_kernel_rel_err")
+
+
+def disagreeing_groups(results: list[dict], tp: int) -> list[list[int]]:
+    """The devices of each group of ``tp`` consecutive ranks whose ranks
+    differ in any of :data:`AGREEMENT_KEYS`."""
+    bad = []
+    for first in range(0, len(results), tp):
+        ranks = results[first : first + tp]
+        if any(r[k] != ranks[0][k] for r in ranks[1:] for k in AGREEMENT_KEYS):
+            bad.append(list(range(first, first + tp)))
+    return bad
+
+
+def combine_ranks(results: list[dict], tp: int) -> dict:
+    """One smoke result from every rank's: the worst rank's oracle values
+    and the slowest rank's speed, the launches of every rank together. With
+    tp > 1, ``ok`` also needs every group's ranks to agree (a group that
+    does not is named by its devices in ``disagreeing_devices``), and the
+    result carries ``tp`` and each rank's group."""
+    bad = disagreeing_groups(results, tp)
+    results = [{k: v for k, v in r.items() if k != "transcript"} for r in results]
     slowest = worst(min)
-    return combine(results, PER_DEVICE_KEYS, {
+    out = combine(results, PER_DEVICE_KEYS, {
         "oracle_ok": all, "transcript_ok": all, "timing_valid": all,
         "transcript_margin": max, "flash_kernel_rel_err": worst(max),
         "tokens_per_sec": slowest, "ms_per_token": worst(max),
         "prefill_tokens_per_sec": slowest, "mfu": slowest, "hbm_bw_util": slowest,
         "prefill_mfu": slowest,
         "kernel_launches": summed_counts, "kernel_launches_by_variant": summed_counts})
+    if tp > 1:
+        for index, card in enumerate(out["per_device"]):
+            card.update(group=index // tp, tp_rank=index % tp)
+        out["tp"] = tp
+        out["disagreeing_devices"] = bad
+        out["ok"] = out["ok"] and not bad
+    return out
 
 
-# Each card's oracles, speed and K2 launches in the combined result.
-PER_DEVICE_KEYS = ("device_name", "ok", "oracle_ok", "transcript_ok", "transcript_margin",
-                   "flash_kernel_rel_err", "tokens_per_sec", "kernel_launches")
+def _tp_group(dev, index: int, count: int, tp: int):
+    """Join the process group of all ``count`` ranks, create every group of
+    ``tp`` consecutive ranks (every rank creates all of them, in the same
+    order) and return this rank's."""
+    bootstrap(device=dev.type)
+    groups = [dist.new_group(list(range(first, first + tp))) for first in range(0, count, tp)]
+    return groups[index // tp]
 
 
 @torch.inference_mode()
 def verify_replica(dev, index: int, count: int, size: str, batch: int, prompt_len: int,
-                   decode_len: int, seed: int, cache_position_offset: int) -> dict:
-    """The whole smoke on one card: the model from ``seed``, the three
-    oracles, decode and prefill timings, and this card's K2 launches."""
+                   decode_len: int, seed: int, cache_position_offset: int, tp: int = 1) -> dict:
+    """The whole smoke on one card, rank ``index`` of ``count``: the model
+    from ``seed`` (with ``tp`` > 1, this rank's shard of it, in the group of
+    ``tp`` consecutive ranks it belongs to), the three oracles, decode and
+    prefill timings, and this card's K2 launches. The result also holds the
+    greedy ``transcript`` for the ranks' agreement."""
     backend = dev.type
     size, cfg = _pick_config(size, backend)
     max_len = prompt_len + decode_len
     use_flash = cfg.resolved_use_flash(dev)
     ops.reset_launch_counts()
 
-    model = LlamaModel(cfg, device=dev, seed=seed)
+    group = GroupTP(_tp_group(dev, index, count, tp)) if tp > 1 else None
+    # Each rank draws every full slab from the seed and keeps its shard, so
+    # each group holds the model a one-card replica holds.
+    model = LlamaModel(cfg, device=dev, seed=seed, tp=group)
     # The same weights through the einsum attention (oracles 1 and 2).
     model_ref = copy.copy(model)
     model_ref.cfg = dataclasses.replace(cfg, use_flash=False)
@@ -254,10 +319,13 @@ def verify_replica(dev, index: int, count: int, size: str, batch: int, prompt_le
 
     # Utilisation: decode moves the full bf16 weight set once per step plus
     # each sequence's KV cache over its full allocated length (a lower bound
-    # on the bytes really moved); MFU counts 2·params FLOPs per token.
+    # on the bytes really moved); MFU counts 2·params FLOPs per token. Both
+    # are over the peaks of the group's tp cards, which share the work: the
+    # JAX smoke divides by every device (n_dev, its smoke/llama_infer.py:336
+    # and :371) because its devices share one global batch.
     generation = generation_for(backend)
-    peak_flops = peak_flops_per_chip(generation) if generation else None
-    peak_bw = peak_hbm_bytes_per_chip(generation) if generation else None
+    peak_flops = tp * peak_flops_per_chip(generation) if generation else None
+    peak_bw = tp * peak_hbm_bytes_per_chip(generation) if generation else None
     mfu = hbm_util = prefill_mfu = None
     if timing_valid and peak_flops and peak_bw:
         mfu = 2.0 * cfg.param_count() * tokens_per_sec / peak_flops
@@ -298,4 +366,5 @@ def verify_replica(dev, index: int, count: int, size: str, batch: int, prompt_le
         ),
         "kernel_launches": ops.launch_counts(),
         "kernel_launches_by_variant": ops.variant_launch_counts(),
+        "transcript": generated.tolist(),
     }
