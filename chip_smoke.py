@@ -119,13 +119,31 @@ counts at 0 just before it and read just after:
    ``params_from_jax`` must be the same tensors, and the flash forward of a
    4 x 1024 batch on each must give the same logits, bit for bit (``wq`` and
    ``wo`` are square, so only the logits catch a missed transpose);
-15. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+15. the device layer (``tpu_cc_manager_torch/gpudev``) on the card, which
+   it never flips or resets: real discovery (the sysfs PCI scan, NVML's
+   GPUs, names, UUIDs and system CC state, torch's BDFs by
+   ``torch_index_by_bdf``), which must agree wherever the machine answers
+   (a sandboxed kernel may show no PCI bus in sysfs, and NVML may refuse PCI
+   information: each refusal is printed with its code); then ``H100Backend``
+   flips the card's BDF off -> on -> devtools -> off through the stand-in
+   gpu-admin-tools (``gpudev/standin_admin.py``, copied under
+   ``build/chip_smoke_gpudev/``), an NVML CC state that follows it, and a
+   stand-in sysfs tree where the real one has no PCI bus; each step must
+   keep the reference's order (every set, then every reset, then every
+   wait_for_boot) and verify, with its seconds by phase. After ``on`` the
+   matmul smoke with ``--kernel cuda`` verifies the card (ok, K1 on
+   ``sm90`` only, the card's BDF in ``per_device``); ``ppcie`` must be
+   refused by the all-devices rule (one card, no NVSwitch); the real card's
+   ``fetch_attestation`` must be refused by NVML (CC off, its return code
+   printed), and NVML's CC state must end as it started. Discovery and
+   NVML query ms are printed beside the ``nvidia-smi`` line;
+16. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
    K3 and K4 are checked in phases 3-4 but run on no path; the ResNet and
    ring paths run none of K1-K4: the ResNet's convolutions are cuDNN's, as
    the JAX package's are XLA's, and the ring's blocks are plain PyTorch, as
    the JAX ring's are XLA einsums), then the ``nvidia-smi`` line;
-16. last line ``{"ok": true, "device": {...}}``.
+17. last line ``{"ok": true, "device": {...}}``.
 
 Before phases 12 and 13, which start processes on this card, the script
 prints what its own process still holds there.
@@ -1554,6 +1572,247 @@ def check_hf_loader(torch) -> dict:
     return launches
 
 
+class FlipNvml:
+    """NVML for phase 15's stand-in flip: the real library for names,
+    handles and the attestation calls, with the system CC state taken from
+    the stand-in admin library's committed modes (the card itself is never
+    flipped). A BDF the real NVML cannot look up (a sandboxed kernel gives
+    it no PCI information) is joined to its handle through torch's BDF and
+    the card's UUID."""
+
+    def __init__(self, admin_dir: str, uuid_by_bdf: dict) -> None:
+        from tpu_cc_manager_torch.gpudev.nvml import Nvml
+
+        self.real = Nvml()
+        self.admin_dir = admin_dir
+        self.uuid_by_bdf = uuid_by_bdf
+
+    def __enter__(self):
+        self.real.init()
+        return self
+
+    def __exit__(self, *exc):
+        self.real.shutdown()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def cc_state(self) -> dict:
+        from tpu_cc_manager_torch.gpudev import standin_admin
+
+        return standin_admin.cc_state(self.admin_dir)
+
+    def cc_settings(self) -> dict:
+        return self.cc_state()
+
+    def cc_mode(self) -> str:
+        from tpu_cc_manager_torch.gpudev.nvml import mode_from_state
+
+        return mode_from_state(self.cc_state(), self.cc_settings())
+
+    def handle_by_bdf(self, bdf: str):
+        from tpu_cc_manager_torch.gpudev.nvml import NvmlError
+
+        try:
+            return self.real.handle_by_bdf(bdf)
+        except NvmlError:
+            for i in range(self.real.device_count()):
+                handle = self.real.handle_by_index(i)
+                if self.real.uuid(handle) == self.uuid_by_bdf.get(bdf):
+                    return handle
+            raise
+
+
+def nvml_view(nvml) -> dict:
+    """What the real NVML says of the system and of each GPU, with the
+    return code of each call it refuses."""
+    from tpu_cc_manager_torch.gpudev.nvml import NvmlError
+
+    def attempt(fn, *args):
+        try:
+            return fn(*args)
+        except NvmlError as e:
+            return {"nvml_return_code": e.code}
+
+    view = {"driver": nvml.driver_version(), "state": nvml.cc_state(),
+            "capabilities": nvml.cc_capabilities(), "settings": attempt(nvml.cc_settings),
+            "ready": attempt(nvml.gpus_ready_state), "gpus": []}
+    for i in range(nvml.device_count()):
+        handle = nvml.handle_by_index(i)
+        view["gpus"].append({"index": i, "name": nvml.name(handle), "uuid": nvml.uuid(handle),
+                             "bdf": attempt(nvml.bdf, handle),
+                             "vbios": attempt(nvml.vbios_version, handle)})
+    return view
+
+
+def check_device_layer(torch, smi_line: str) -> dict:
+    """Phase 15: the device layer (gpudev) on the card. Real discovery;
+    then H100Backend flips off -> on -> devtools -> off through stand-ins
+    for every part that would change the card, with the K1 matmul smoke as
+    the verify after ``on``; the real card's attestation must be refused
+    (CC off) and its CC state must end as it started. Returns the verify
+    smoke's launch counts."""
+    import pathlib
+    import shutil
+
+    from tpu_cc_manager_torch.gpudev import hostcaps, pci, standin_admin
+    from tpu_cc_manager_torch.gpudev.admin import AdminTools
+    from tpu_cc_manager_torch.gpudev.contract import (
+        MODE_DEVTOOLS,
+        MODE_OFF,
+        MODE_ON,
+        MODE_PPCIE,
+        GpuError,
+    )
+    from tpu_cc_manager_torch.gpudev.h100 import H100Backend
+    from tpu_cc_manager_torch.gpudev.nvml import Nvml, NvmlError, mode_from_state
+    from tpu_cc_manager_torch.smoke.runner import SmokeError, run_workload_subprocess
+
+    # --- real discovery: sysfs, NVML, torch ---
+    t0 = time.perf_counter()
+    found = pci.scan("/sys")
+    discovery_ms = 1e3 * (time.perf_counter() - t0)
+    bus = pci.pci_bus_present("/sys")
+    t0 = time.perf_counter()
+    with Nvml() as nvml:
+        start = nvml_view(nvml)
+    nvml_ms = 1e3 * (time.perf_counter() - t0)
+    by_bdf = pci.torch_index_by_bdf()
+    torch_uuid = {bdf: f"GPU-{torch.cuda.get_device_properties(i).uuid}"
+                  for bdf, i in by_bdf.items()}
+    start_mode = mode_from_state(start["state"], start["settings"])
+    sys_gpus = sorted(f.bdf for f in found if f.kind == "gpu")
+    switches = [f.bdf for f in found if f.kind == "nvswitch"]
+    say(f"device layer: sysfs PCI bus {'present' if bus else 'absent'}; GPUs {sys_gpus}, "
+        f"{len(switches)} NVSwitch(es); host CC {hostcaps.is_host_cc_enabled()}")
+    say(f"device layer: NVML driver {start['driver']}, CC state {start['state']} "
+        f"(environment {start['state']['environment']}, feature {start['state']['feature']}, "
+        f"devtools {start['state']['devtools']}), capabilities {start['capabilities']}, "
+        f"settings {start['settings']}, ready {start['ready']} -> mode {start_mode}")
+    nvml_by_uuid = {g["uuid"]: g for g in start["gpus"]}
+    for bdf, i in sorted(by_bdf.items()):
+        g = nvml_by_uuid.get(torch_uuid[bdf])
+        if g is None:
+            fail(f"NVML lists no GPU with the UUID torch gives {bdf}")
+        say(f"device layer: torch cuda:{i} {bdf} {torch.cuda.get_device_name(i)!r}; NVML by "
+            f"UUID {({k: v for k, v in g.items() if k != 'uuid'})}; CC capable "
+            f"{start['capabilities']['gpus'] == 1}, PPCIe capable {bool(switches)}")
+        if g["name"] != torch.cuda.get_device_name(i):
+            fail(f"{bdf}: NVML names it {g['name']!r}, torch {torch.cuda.get_device_name(i)!r}")
+        if isinstance(g["bdf"], str) and g["bdf"] != bdf:
+            fail(f"NVML places torch's {bdf} at {g['bdf']}")
+    if len(start["gpus"]) != torch.cuda.device_count():
+        fail(f"NVML counts {len(start['gpus'])} GPUs, torch {torch.cuda.device_count()}")
+    if bus and sys_gpus != sorted(by_bdf):
+        fail(f"sysfs lists GPUs {sys_gpus}, torch {sorted(by_bdf)}")
+    nvml_bdfs = sorted(g["bdf"] for g in start["gpus"] if isinstance(g["bdf"], str))
+    say(f"device layer: BDFs by torch {sorted(by_bdf)}; by sysfs "
+        f"{sys_gpus if bus else 'none (no PCI bus in sysfs)'}; by NVML "
+        f"{nvml_bdfs or [g['bdf'] for g in start['gpus']]}")
+    say(f"device layer: discovery {discovery_ms:.3f} ms, NVML queries {nvml_ms:.3f} ms "
+        f"({smi_line})")
+
+    # --- the stand-in flip ---
+    directory = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_gpudev"
+    shutil.rmtree(directory, ignore_errors=True)
+    admin_dir = directory / "admin"
+    admin_dir.mkdir(parents=True)
+    shutil.copy(standin_admin.__file__, admin_dir)
+    names = {bdf: torch.cuda.get_device_name(i) for bdf, i in by_bdf.items()}
+    # A card with no NVSwitch fabric cannot join a PPCIe domain.
+    standin_admin.write_state(str(admin_dir), [
+        standin_admin.device_state(bdf, names[bdf], cc=start_mode, ppcie_supported=bool(switches))
+        for bdf in sorted(by_bdf)])
+    sysfs_root = "/sys"
+    if not bus:  # a stand-in tree of the same BDFs for the backend's sysfs scan
+        sysfs_root = str(directory / "sys")
+        for bdf in by_bdf:
+            entry = directory / "sys" / "bus" / "pci" / "devices" / bdf
+            entry.mkdir(parents=True)
+            (entry / "vendor").write_text("0x10de\n")
+            (entry / "class").write_text("0x030200\n")
+    backend = H100Backend(state_dir=str(directory / "state"),
+                          admin=AdminTools(path=str(admin_dir), module="standin_admin"),
+                          nvml=FlipNvml(str(admin_dir), torch_uuid), sysfs_root=sysfs_root,
+                          node_id="chip-smoke")
+    say(f"device layer: stand-ins: gpu-admin-tools ({admin_dir}/standin_admin.py), the NVML "
+        f"CC state, {'the sysfs tree' if not bus else 'no sysfs'}; real: BDFs, names, NVML "
+        "handles and attestation calls")
+    topo = backend.discover()
+    if sorted(d.bdf for d in topo.devices) != sorted(by_bdf):
+        fail(f"H100Backend found {[d.bdf for d in topo.devices]}, torch {sorted(by_bdf)}")
+    devices = topo.devices
+    verify_launches = None
+    for mode in (MODE_ON, MODE_DEVTOOLS, MODE_OFF):
+        before = len(standin_admin.read_state(str(admin_dir))["calls"])
+        seconds = {}
+        t0 = time.perf_counter()
+        backend.stage_cc_mode(devices, mode)
+        seconds["stage"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        backend.reset(devices)
+        seconds["reset"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        backend.wait_ready(devices, timeout_s=60)
+        seconds["wait"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        verified = [backend.query_cc_mode(d) for d in devices]
+        seconds["verify"] = time.perf_counter() - t0
+        calls = standin_admin.read_state(str(admin_dir))["calls"][before:]
+        order = [op for op, _, _ in calls if op in ("set_cc_mode", "reset_with_os",
+                                                    "wait_for_boot")]
+        n = len(devices)
+        say(f"device layer: flip -> {mode}: verified {verified}; seconds "
+            f"{json.dumps({k: round(v, 6) for k, v in seconds.items()})}; calls {calls}")
+        if verified != [mode] * n:
+            fail(f"the flip to {mode} verified {verified}")
+        if order != ["set_cc_mode"] * n + ["reset_with_os"] * n + ["wait_for_boot"] * n:
+            fail(f"the flip to {mode} broke the reference's order: {order}")
+        if mode == MODE_ON:
+            t0 = time.perf_counter()
+            try:
+                res = run_workload_subprocess("matmul", timeout_s=300,
+                                              extra_args=["--kernel", "cuda"])
+            except SmokeError as e:
+                fail(f"device layer verify smoke: {e}")
+            wall = time.perf_counter() - t0
+            verify_launches = {**res["kernel_launches"],
+                               **flat_variants(res["kernel_launches_by_variant"])}
+            say(f"device layer: verify after on: matmul --kernel cuda ok={res['ok']} "
+                f"devices={res['devices']} (torch {torch.cuda.device_count()}) "
+                f"bdf={[c['bdf'] for c in res['per_device']]} K1 sm90="
+                f"{verify_launches['K1/sm90']} simt={verify_launches['K1/simt']}; child wall "
+                f"{wall:.2f} s")
+            check_devices("device layer verify smoke", res, 1)
+            if res["per_device"][0]["bdf"] not in by_bdf:
+                fail(f"the verify smoke's card {res['per_device'][0]['bdf']} is not one of "
+                     f"{sorted(by_bdf)}")
+            if verify_launches["K1/sm90"] <= 0 or verify_launches["K1/simt"] != 0:
+                fail("the verify smoke did not launch K1, or not all on its sm90 kernel")
+    try:
+        backend.stage_cc_mode(devices, MODE_PPCIE)
+        fail("ppcie was staged on a node where not every device supports it")
+    except GpuError as e:
+        say(f"device layer: ppcie refused: {e}")
+
+    # --- the real card: no attestation with CC off, its mode untouched ---
+    try:
+        backend.fetch_attestation("chip-smoke-nonce")
+        fail("fetch_attestation built a quote with the card's CC off")
+    except NvmlError as e:
+        say(f"device layer: fetch_attestation refused by {e.function}: NVML return code "
+            f"{e.code}")
+        if e.function != "nvmlDeviceGetConfComputeGpuAttestationReport":
+            fail(f"fetch_attestation failed before the report: {e}")
+    with Nvml() as nvml:
+        end = nvml.cc_state()
+    say(f"device layer: NVML CC state at the start {start['state']}, at the end {end}")
+    if end != start["state"]:
+        fail("the card's CC state changed during phase 15")
+    shutil.rmtree(directory, ignore_errors=True)
+    return verify_launches
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--only-kernels", action="store_true",
@@ -1735,7 +1994,10 @@ def main(argv: list[str] | None = None) -> int:
     # --- 14. the Hugging Face loader at Llama-3.2-1B width --------------------------
     paths["hf loader 1b forward"] = check_hf_loader(torch)
 
-    # --- 15. kernel summary -----------------------------------------------------
+    # --- 15. the device layer (gpudev) on the card ---------------------------------
+    paths["device layer verify smoke"] = check_device_layer(torch, smi_line)
+
+    # --- 16. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -1761,7 +2023,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 16. last line ------------------------------------------------------------
+    # --- 17. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

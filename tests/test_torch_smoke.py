@@ -70,6 +70,8 @@ def test_smoke_verifies_every_device(monkeypatch, workload, kwargs):
     assert result["ok"] is True and result["devices"] == 2
     assert len(result["per_device"]) == 2
     assert all(card["ok"] and card["device_name"] == "cpu" for card in result["per_device"])
+    # Each card names its PCI address, the key gpudev resets it by; a CPU has none.
+    assert [card["bdf"] for card in result["per_device"]] == [None, None]
     if workload == "matmul":
         assert result["size"] == 256  # a multiple of 128 rows on each of 2 cards
         assert all(card["ident_err"] <= 1e-6 and card["rowsum_rel_err"] <= 2e-2
@@ -89,6 +91,24 @@ def test_cuda_matmul_kernel_stays_on_one_device():
     assert len(result["per_device"]) == 1
     with pytest.raises(runner.SmokeConfigError, match="positive integer"):
         runner.run_workload("matmul", size=256, device="cpu", n_devices=0)
+
+
+def test_device_bdf_reads_the_cards_pci_address(monkeypatch):
+    """A card's BDF comes from its CUDA properties (CUDA gives no PCI
+    function: a GPU is function 0), by the index torch gives it."""
+    from types import SimpleNamespace
+
+    props = {0: SimpleNamespace(pci_domain_id=0, pci_bus_id=0x19, pci_device_id=0),
+             1: SimpleNamespace(pci_domain_id=1, pci_bus_id=0xAB, pci_device_id=3)}
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props.__getitem__)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert runner.device_bdf(torch.device("cpu")) is None
+    assert runner.device_bdf(torch.device("cuda", 0)) == "0000:19:00.0"
+    assert runner.device_bdf(torch.device("cuda")) == "0001:ab:03.0"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    from tpu_cc_manager_torch.gpudev.pci import torch_index_by_bdf
+
+    assert torch_index_by_bdf() == {"0000:19:00.0": 0, "0001:ab:03.0": 1}
 
 
 @pytest.mark.parametrize("mode", ["raises", "dies", "not-ok"])

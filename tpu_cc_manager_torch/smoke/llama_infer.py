@@ -50,6 +50,7 @@ from tpu_cc_manager_torch.smoke.runner import (
     SmokeConfigError,
     await_dispatch_gate,
     combine,
+    device_bdf,
     device_count,
     resolve_device,
     run_per_device,
@@ -138,7 +139,7 @@ def run(
 
 # Each card's oracles, speed and K2 launches in the combined result (with
 # tp > 1 also its ``group`` and its ``tp_rank`` in the group).
-PER_DEVICE_KEYS = ("device_name", "ok", "oracle_ok", "transcript_ok", "transcript_margin",
+PER_DEVICE_KEYS = ("device_name", "bdf", "ok", "oracle_ok", "transcript_ok", "transcript_margin",
                    "flash_kernel_rel_err", "tokens_per_sec", "kernel_launches")
 # What the ranks of one tp group must agree on: they decode from the same
 # joined logits, so every token and margin is the same bits.
@@ -342,6 +343,7 @@ def verify_replica(dev, index: int, count: int, size: str, batch: int, prompt_le
         "model": size,
         "backend": backend,
         "device_name": torch.cuda.get_device_name(dev) if backend == "cuda" else "cpu",
+        "bdf": device_bdf(dev),
         "generation": generation,
         "params": cfg.param_count(),
         "batch": batch,

@@ -30,6 +30,7 @@ from tpu_cc_manager_torch.smoke.runner import (
     SmokeConfigError,
     await_dispatch_gate,
     combine,
+    device_bdf,
     device_count,
     resolve_device,
     run_per_device,
@@ -94,7 +95,7 @@ def run(size: int | None = None, iters: int | None = None, seed: int = 0,
 
 
 # Each card's oracles and identity in the combined result.
-PER_DEVICE_KEYS = ("device_name", "ok", "ident_err", "rowsum_rel_err", "seconds_per_iter")
+PER_DEVICE_KEYS = ("device_name", "bdf", "ok", "ident_err", "rowsum_rel_err", "seconds_per_iter")
 
 
 def verify_rows(dev, index: int, count: int, size: int, iters: int, seed: int,
@@ -173,6 +174,7 @@ def verify_rows(dev, index: int, count: int, size: int, iters: int, seed: int,
         "workload": "matmul",
         "backend": backend,
         "device_name": torch.cuda.get_device_name(dev) if backend == "cuda" else "cpu",
+        "bdf": device_bdf(dev),
         "generation": generation_for(backend),
         "timing_valid": bool(timing_valid),
         "seconds_per_iter": diff / (3 * iters) if timing_valid else None,

@@ -36,6 +36,7 @@ from tpu_cc_manager_torch.smoke.runner import (
     SmokeError,
     await_dispatch_gate,
     combine,
+    device_bdf,
     device_count,
     resolve_device,
     run_per_device,
@@ -135,7 +136,7 @@ def run(size: str | None = None, batch: int | None = None, steps: int = 6, seed:
 
 
 # Each rank's verdict, loss and speed in the combined result.
-PER_DEVICE_KEYS = ("device_name", "ok", "loss_first", "loss_last", "seconds_per_step")
+PER_DEVICE_KEYS = ("device_name", "bdf", "ok", "loss_first", "loss_last", "seconds_per_step")
 
 
 def train_rank(dev, index: int, count: int, size: str, batch: int, steps: int,
@@ -211,6 +212,7 @@ def train_rank(dev, index: int, count: int, size: str, batch: int, steps: int,
         "model": size,
         "backend": backend,
         "device_name": torch.cuda.get_device_name(dev) if backend == "cuda" else "cpu",
+        "bdf": device_bdf(dev),
         "batch": batch,
         "timing_valid": bool(timing_valid),
         "seconds_per_step": round(dt, 4) if timing_valid else None,

@@ -276,6 +276,19 @@ def torch_device(dev, index: int):
     return torch.device("cuda", index) if dev.type == "cuda" else torch.device("cpu")
 
 
+def device_bdf(dev) -> str | None:
+    """The PCI address of card ``dev``, the key ``gpudev`` resets it by
+    (torch's device indices follow ``CUDA_VISIBLE_DEVICES`` and
+    ``CUDA_DEVICE_ORDER``); None for the CPU."""
+    if dev.type != "cuda":
+        return None
+    import torch
+
+    from tpu_cc_manager_torch.gpudev.pci import bdf_of_torch_device
+
+    return bdf_of_torch_device(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
 def combine(results: list[dict], per_device_keys: tuple, reducers: dict) -> dict:
     """One smoke result from the per-device ones: device 0's keys, then
     ``ok`` only when every device is ok, ``devices`` their count, each key of
