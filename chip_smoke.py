@@ -137,13 +137,32 @@ counts at 0 just before it and read just after:
    ``fetch_attestation`` must be refused by NVML (CC off, its return code
    printed), and NVML's CC state must end as it started. Discovery and
    NVML query ms are printed beside the ``nvidia-smi`` line;
-16. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+16. the port's agent (``tpu_cc_manager_torch/ccmanager``) on the card:
+   (a) in this process, ``CCManager`` over the port's ``FakeKube`` with the
+   operator's component pods on the node (drained and re-admitted on every
+   flip), flipping off -> on -> off twice: over phase 15's stand-in rig
+   (``H100Backend`` behind ``ccmanager/node.py``, the manager's own
+   verifier), where the flip to on must fail at its attestation (NVML
+   refuses the report with CC off), before its smoke, and leave the card's
+   CC state as it was; then over the port's fake node with fake quotes
+   admitted. Every other flip that changes the mode (h100 off, fake on,
+   fake off) is verified by K1's matmul smoke on the card (``--kernel
+   cuda``, all on ``sm90``). Each flip's result, wall and phase seconds
+   (``tpu_cc_phase_seconds``) and label tuples are printed, and the label
+   sequence must be the JAX agent's (``AGENT_LABELS``). (b)
+   ``python -m tpu_cc_manager_torch --gpu-backend fake --smoke-workload
+   matmul`` as a process against ``hack/mock_apiserver.py``
+   (``ccmanager/localrig.py``): the desired label set to on, the seconds
+   until the node reads ``mode.state=on`` and ``ready.state=true``
+   (drain->ready, beside the 90 s budget and the ``nvidia-smi`` line) and
+   the agent's own phase seconds from ``/metrics``; SIGTERM must exit 0;
+17. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
    K3 and K4 are checked in phases 3-4 but run on no path; the ResNet and
    ring paths run none of K1-K4: the ResNet's convolutions are cuDNN's, as
    the JAX package's are XLA's, and the ring's blocks are plain PyTorch, as
    the JAX ring's are XLA einsums), then the ``nvidia-smi`` line;
-17. last line ``{"ok": true, "device": {...}}``.
+18. last line ``{"ok": true, "device": {...}}``.
 
 Before phases 12 and 13, which start processes on this card, the script
 prints what its own process still holds there.
@@ -227,9 +246,45 @@ HF_1B_CONFIG = dict(
                   "high_freq_factor": 4.0, "original_max_position_embeddings": 8192})
 HF_BATCH, HF_SEQ = 4, 1024
 
+# Phase 16, the port's agent on the card. Its node, with the operator's
+# component pods on it, and the flips each pass makes.
+AGENT_NODE = "chip-smoke-node"
+AGENT_NS = "tpu-operator"
+AGENT_FLIPS = ("off", "on", "off")
+# The labels followed on the node: mode state, ready state, failed reason
+# and the device plugin's deploy label (paused while the node drains).
+AGENT_LABEL_KEYS = ("cloud.google.com/tpu-cc.mode.state", "cloud.google.com/tpu-cc.ready.state",
+                    "cloud.google.com/tpu-cc.failed.reason",
+                    "google.com/tpu.deploy.device-plugin")
+_PAUSED = "paused-for-tpu-cc-mode-change"
+# Each pass's distinct label tuples per flip, as the JAX agent gives them on
+# the CPU (tests/test_torch_agent_manager.py holds both agents to these): the
+# components come back before the state label is written. On
+# the card's H100Backend the flip to on fails at its attestation: NVML
+# refuses the report with CC off, a device error, so the reason is the one
+# the manager gives every device error (``apply-failed``).
+AGENT_LABELS = {
+    "h100": [[("off", "false", None, "true")],
+             [("off", "false", None, _PAUSED), ("failed", "", "apply-failed", _PAUSED),
+              ("failed", "", "apply-failed", "true")],
+             [("failed", "", "apply-failed", _PAUSED), ("failed", "", "apply-failed", "true"),
+              ("off", "false", None, "true")]],
+    "fake": [[("off", "false", None, "true")],
+             [("off", "false", None, _PAUSED), ("off", "false", None, "true"),
+              ("on", "true", None, "true")],
+             [("on", "true", None, _PAUSED), ("on", "true", None, "true"),
+              ("off", "false", None, "true")]],
+}
+AGENT_BUDGET_S = 90.0  # drain->ready per node, the north star (BASELINE.md)
+AGENT_FLIP_TIMEOUT_S = 180
+AGENT_PHASES = ("drain", "stage", "reset", "wait_ready", "attest", "smoke", "readmit")
+
 
 def fail(message: str) -> None:
+    """Print the failure on both streams (a caller that keeps only one of
+    them still sees why) and exit 1."""
     print(f"FAIL: {message}", flush=True)
+    print(f"FAIL: {message}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1645,6 +1700,43 @@ def nvml_view(nvml) -> dict:
     return view
 
 
+def standin_h100(torch, directory, start_mode: str, by_bdf: dict, torch_uuid: dict,
+                 fabric: bool, bus: bool):
+    """``H100Backend`` over the card's BDFs with the stand-ins phase 15
+    describes, under ``directory`` (emptied first): the gpu-admin-tools
+    stand-in at ``start_mode``, NVML's CC state following it, and a sysfs
+    tree of the same BDFs where the machine's sysfs has no PCI bus. Returns
+    the backend and the stand-in admin library's directory."""
+    import shutil
+
+    from tpu_cc_manager_torch.gpudev import standin_admin
+    from tpu_cc_manager_torch.gpudev.admin import AdminTools
+    from tpu_cc_manager_torch.gpudev.h100 import H100Backend
+
+    shutil.rmtree(directory, ignore_errors=True)
+    admin_dir = directory / "admin"
+    admin_dir.mkdir(parents=True)
+    shutil.copy(standin_admin.__file__, admin_dir)
+    names = {bdf: torch.cuda.get_device_name(i) for bdf, i in by_bdf.items()}
+    # A card with no NVSwitch fabric cannot join a PPCIe domain.
+    standin_admin.write_state(str(admin_dir), [
+        standin_admin.device_state(bdf, names[bdf], cc=start_mode, ppcie_supported=fabric)
+        for bdf in sorted(by_bdf)])
+    sysfs_root = "/sys"
+    if not bus:  # a stand-in tree of the same BDFs for the backend's sysfs scan
+        sysfs_root = str(directory / "sys")
+        for bdf in by_bdf:
+            entry = directory / "sys" / "bus" / "pci" / "devices" / bdf
+            entry.mkdir(parents=True)
+            (entry / "vendor").write_text("0x10de\n")
+            (entry / "class").write_text("0x030200\n")
+    backend = H100Backend(state_dir=str(directory / "state"),
+                          admin=AdminTools(path=str(admin_dir), module="standin_admin"),
+                          nvml=FlipNvml(str(admin_dir), torch_uuid), sysfs_root=sysfs_root,
+                          node_id="chip-smoke")
+    return backend, admin_dir
+
+
 def check_device_layer(torch, smi_line: str) -> dict:
     """Phase 15: the device layer (gpudev) on the card. Real discovery;
     then H100Backend flips off -> on -> devtools -> off through stand-ins
@@ -1656,7 +1748,6 @@ def check_device_layer(torch, smi_line: str) -> dict:
     import shutil
 
     from tpu_cc_manager_torch.gpudev import hostcaps, pci, standin_admin
-    from tpu_cc_manager_torch.gpudev.admin import AdminTools
     from tpu_cc_manager_torch.gpudev.contract import (
         MODE_DEVTOOLS,
         MODE_OFF,
@@ -1664,7 +1755,6 @@ def check_device_layer(torch, smi_line: str) -> dict:
         MODE_PPCIE,
         GpuError,
     )
-    from tpu_cc_manager_torch.gpudev.h100 import H100Backend
     from tpu_cc_manager_torch.gpudev.nvml import Nvml, NvmlError, mode_from_state
     from tpu_cc_manager_torch.smoke.runner import SmokeError, run_workload_subprocess
 
@@ -1714,27 +1804,8 @@ def check_device_layer(torch, smi_line: str) -> dict:
 
     # --- the stand-in flip ---
     directory = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_gpudev"
-    shutil.rmtree(directory, ignore_errors=True)
-    admin_dir = directory / "admin"
-    admin_dir.mkdir(parents=True)
-    shutil.copy(standin_admin.__file__, admin_dir)
-    names = {bdf: torch.cuda.get_device_name(i) for bdf, i in by_bdf.items()}
-    # A card with no NVSwitch fabric cannot join a PPCIe domain.
-    standin_admin.write_state(str(admin_dir), [
-        standin_admin.device_state(bdf, names[bdf], cc=start_mode, ppcie_supported=bool(switches))
-        for bdf in sorted(by_bdf)])
-    sysfs_root = "/sys"
-    if not bus:  # a stand-in tree of the same BDFs for the backend's sysfs scan
-        sysfs_root = str(directory / "sys")
-        for bdf in by_bdf:
-            entry = directory / "sys" / "bus" / "pci" / "devices" / bdf
-            entry.mkdir(parents=True)
-            (entry / "vendor").write_text("0x10de\n")
-            (entry / "class").write_text("0x030200\n")
-    backend = H100Backend(state_dir=str(directory / "state"),
-                          admin=AdminTools(path=str(admin_dir), module="standin_admin"),
-                          nvml=FlipNvml(str(admin_dir), torch_uuid), sysfs_root=sysfs_root,
-                          node_id="chip-smoke")
+    backend, admin_dir = standin_h100(torch, directory, start_mode, by_bdf, torch_uuid,
+                                      bool(switches), bus)
     say(f"device layer: stand-ins: gpu-admin-tools ({admin_dir}/standin_admin.py), the NVML "
         f"CC state, {'the sysfs tree' if not bus else 'no sysfs'}; real: BDFs, names, NVML "
         "handles and attestation calls")
@@ -1811,6 +1882,218 @@ def check_device_layer(torch, smi_line: str) -> dict:
         fail("the card's CC state changed during phase 15")
     shutil.rmtree(directory, ignore_errors=True)
     return verify_launches
+
+
+def agent_pass(name: str, gpu, smoke_runner, directory, allow_fake_quotes=None,
+               kube=None) -> list[dict]:
+    """One pass of phase 16 (a): the port's ``CCManager`` over ``gpu``
+    (behind ``ccmanager/node.py``) and ``kube`` (a new port ``FakeKube``
+    by default), with the operator's component pods on the node and a
+    reactor playing their DaemonSets (a paused component's pods go, a
+    restored one's come back), flips ``AGENT_FLIPS``. Returns each flip's
+    result, wall seconds, phase seconds and label tuples; the components
+    must be back after each."""
+    import threading
+
+    from tpu_cc_manager_torch.ccmanager.intent_journal import IntentJournal
+    from tpu_cc_manager_torch.ccmanager.manager import CCManager
+    from tpu_cc_manager_torch.ccmanager.node import NodeBackend
+    from tpu_cc_manager_torch.gpudev import hostcaps
+    from tpu_cc_manager_torch.kubeclient.api import node_labels
+    from tpu_cc_manager_torch.kubeclient.fake import FakeKube
+    from tpu_cc_manager_torch.labels import DRAIN_COMPONENT_LABELS
+    from tpu_cc_manager_torch.utils.metrics import MetricsRegistry
+
+    kube = kube or FakeKube()
+    kube.add_node(AGENT_NODE, {key: "true" for key in DRAIN_COMPONENT_LABELS})
+
+    def pods() -> list:
+        return sorted(p["metadata"]["name"] for p in kube.list_pods(AGENT_NS))
+
+    def start_pod(app: str) -> None:
+        kube.add_pod(AGENT_NS, f"{app}-{AGENT_NODE}", AGENT_NODE, labels={"app": app})
+
+    for app in DRAIN_COMPONENT_LABELS.values():
+        start_pod(app)
+    all_pods = pods()
+    # Reactors run on the patching thread (the manager re-admits on one of
+    # its own), so they may run out of order: each patch is placed by its
+    # resourceVersion, and the DaemonSets act on the node as it is now.
+    patches = []  # (resourceVersion, label tuple)
+    lock = threading.Lock()
+
+    def on_patch(_node_name, node) -> None:
+        patches.append((int(node["metadata"]["resourceVersion"]),
+                        tuple(node_labels(node).get(k) for k in AGENT_LABEL_KEYS)))
+        with lock:
+            labels = node_labels(kube.get_node(AGENT_NODE))
+            for key, app in DRAIN_COMPONENT_LABELS.items():
+                if labels.get(key) != "true":
+                    kube.delete_pods_matching(AGENT_NS, f"app={app}")
+                elif not kube.list_pods(AGENT_NS, f"app={app}"):
+                    start_pod(app)
+
+    def steps_since(mark: int) -> list:
+        ordered = [step for _, step in sorted(patches)]
+        out, last = [], ordered[mark - 1] if mark else None
+        for step in ordered[mark:]:
+            if step != last:
+                out.append(step)
+            last = step
+        return out
+
+    kube.add_patch_reactor(on_patch)
+    registry = MetricsRegistry()
+    manager = CCManager(
+        api=kube, backend=NodeBackend(gpu), node_name=AGENT_NODE,
+        host_cc_capable=hostcaps.is_host_cc_enabled(), operator_namespace=AGENT_NS,
+        evict_components=True, eviction_poll_interval_s=0.1, smoke_workload="matmul",
+        smoke_runner=smoke_runner, allow_fake_quotes=allow_fake_quotes, metrics=registry,
+        readiness_file=str(directory / f"ready-{name}"), state_dir=str(directory / name),
+        intent_journal=IntentJournal.from_state_dir(str(directory / name)))
+    flips = []
+    for mode in AGENT_FLIPS:
+        mark, reconciles = len(patches), len(registry.history)
+        t0 = time.perf_counter()
+        result = manager.set_cc_mode(mode)
+        wall = time.perf_counter() - t0
+        # A flip to the mode the node holds records no reconcile.
+        phases = registry.last().phases if len(registry.history) > reconciles else []
+        flip = {"pass": name, "mode": mode, "result": result, "wall_s": round(wall, 6),
+                "phase_s": {p.name: round(p.seconds, 6) for p in phases},
+                "failed_phases": [p.name for p in phases if not p.ok],
+                "labels": steps_since(mark)}
+        say(f"agent [{name}] flip -> {mode}: {json.dumps(flip)}")
+        if pods() != all_pods or any(node_labels(kube.get_node(AGENT_NODE)).get(k) != "true"
+                                     for k in DRAIN_COMPONENT_LABELS):
+            fail(f"agent [{name}] flip -> {mode} left the components out: pods {pods()}")
+        flips.append(flip)
+    for event in kube.events:
+        say(f"agent [{name}] event {event.get('reason')}: {event.get('message')}")
+    labels = [f["labels"] for f in flips]
+    if labels != AGENT_LABELS[name]:
+        fail(f"agent [{name}] label sequence {labels} is not the JAX agent's "
+             f"{AGENT_LABELS[name]}")
+    return flips
+
+
+def check_agent(torch, smi_line: str) -> dict:
+    """Phase 16: the port's agent on the card. (a) In this process, over
+    phase 15's stand-in rig (real discovery, ``H100Backend`` with the
+    stand-in gpu-admin-tools), with the manager's own verifier, then over the
+    port's fake node with fake quotes admitted; the verify smoke is K1's
+    matmul smoke on the card. (b) ``python -m tpu_cc_manager_torch`` as a
+    process against ``hack/mock_apiserver.py``: one flip to on, timed from
+    the desired label to the ready label, then SIGTERM. Returns the verify
+    smoke's launch counts."""
+    import pathlib
+    import shutil
+    import signal
+
+    from tpu_cc_manager_torch.ccmanager import localrig
+    from tpu_cc_manager_torch.gpudev import pci
+    from tpu_cc_manager_torch.gpudev.fake import FakeGpuBackend
+    from tpu_cc_manager_torch.gpudev.nvml import Nvml, mode_from_state
+    from tpu_cc_manager_torch.labels import (
+        CC_MODE_LABEL,
+        CC_MODE_STATE_LABEL,
+        CC_READY_STATE_LABEL,
+    )
+    from tpu_cc_manager_torch.smoke.runner import run_workload_subprocess
+    from tpu_cc_manager_torch.utils.launch import free_port
+
+    directory = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_agent"
+    found = pci.scan("/sys")
+    by_bdf = pci.torch_index_by_bdf()
+    torch_uuid = {bdf: f"GPU-{torch.cuda.get_device_properties(i).uuid}"
+                  for bdf, i in by_bdf.items()}
+    with Nvml() as nvml:
+        start = nvml_view(nvml)
+    start_mode = mode_from_state(start["state"], start["settings"])
+    switches = [f.bdf for f in found if f.kind == "nvswitch"]
+    gpu, _ = standin_h100(torch, directory, start_mode, by_bdf, torch_uuid, bool(switches),
+                          pci.pci_bus_present("/sys"))
+    smokes = []
+
+    def smoke(workload: str) -> dict:
+        res = run_workload_subprocess(workload, timeout_s=300, extra_args=["--kernel", "cuda"])
+        smokes.append(res)
+        return res
+
+    # --- (a) in process: the h100 pass, then the fake pass ---
+    # Every flip that changes the mode ends with the verify smoke, the flip
+    # to off too; the first flip (off on a node at off) changes nothing.
+    h100 = agent_pass("h100", gpu, smoke, directory)
+    if [f["result"] for f in h100] != [True, False, True]:
+        fail(f"agent [h100]: results {[f['result'] for f in h100]}, want [True, False, True]")
+    if h100[1]["failed_phases"] != ["attest"] or "smoke" in h100[1]["phase_s"]:
+        fail("agent [h100]: the flip to on did not fail at its attestation, before the smoke")
+    with Nvml() as nvml:
+        end = nvml.cc_state()
+    say(f"agent [h100]: NVML CC state at the start {start['state']}, at the end {end}")
+    if end != start["state"]:
+        fail("the card's CC state changed during phase 16")
+    fake = FakeGpuBackend(num_gpus=len(by_bdf), num_switches=len(switches),
+                          node_id="chip-smoke")
+    flips = agent_pass("fake", fake, smoke, directory, allow_fake_quotes=True)
+    if [f["result"] for f in flips] != [True, True, True]:
+        fail(f"agent [fake]: results {[f['result'] for f in flips]}, want [True, True, True]")
+    runs = [f"{f['pass']} {f['mode']}" for f in h100 + flips if "smoke" in f["phase_s"]]
+    if runs != ["h100 off", "fake on", "fake off"] or len(smokes) != len(runs):
+        fail(f"agent: verify smokes after {runs} ({len(smokes)} run), want after "
+             "h100 off, fake on, fake off")
+    launches = {}
+    for run, res in zip(runs, smokes):
+        counts = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
+        say(f"agent: verify smoke after {run}: ok={res['ok']} devices={res['devices']} "
+            f"K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
+        check_devices(f"agent verify smoke after {run}", res, 1)
+        if counts["K1/sm90"] <= 0 or counts["K1/simt"] != 0:
+            fail("the agent's verify smoke did not launch K1, or not all on its sm90 kernel")
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    say(f"agent [fake]: flip -> on drain->ready {flips[1]['wall_s']:.3f} s (in process, drain "
+        f"poll 0.1 s; budget {AGENT_BUDGET_S:g} s; {smi_line})")
+
+    # --- (b) the CLI as a process against the mock apiserver ---
+    metrics_port = free_port()
+    with localrig.LocalRig(str(directory / "rig")) as rig:
+        agent = rig.start_agent(
+            ["--gpu-backend", "fake", "--smoke-workload", "matmul"], metrics_port=metrics_port,
+            env={"GPU_CC_FAKE_NUM_GPUS": str(len(by_bdf)),
+                 "GPU_CC_FAKE_NUM_SWITCHES": str(len(switches))})
+        # The host is not CC capable, so the agent first applies its default, off.
+        if not rig.await_labels({CC_MODE_STATE_LABEL: "off"}, 60):
+            fail(f"agent CLI: no initial reconcile: {rig.log_of(agent)[-3000:]}")
+        t0 = time.perf_counter()
+        rig.set_label(CC_MODE_LABEL, "on")
+        ready = rig.await_labels({CC_MODE_STATE_LABEL: "on", CC_READY_STATE_LABEL: "true"},
+                                 AGENT_FLIP_TIMEOUT_S)
+        drain_to_ready = time.perf_counter() - t0
+        if not ready:
+            fail(f"agent CLI: no flip to on in {AGENT_FLIP_TIMEOUT_S} s: "
+                 f"{rig.log_of(agent)[-3000:]}")
+        t0 = time.perf_counter()
+        phases, text = localrig.await_phases(metrics_port, "on", AGENT_PHASES, 30)
+        recorded_after = time.perf_counter() - t0
+        reconcile = [line for line in text.splitlines()
+                     if line.startswith('tpu_cc_reconcile_seconds{mode="on"')]
+        say(f"agent CLI: python -m tpu_cc_manager_torch --gpu-backend fake --smoke-workload "
+            f"matmul: drain->ready {drain_to_ready:.3f} s (budget {AGENT_BUDGET_S:g} s; "
+            f"{smi_line}); tpu_cc_phase_seconds {json.dumps(phases)}, read "
+            f"{recorded_after:.3f} s after the ready label; {reconcile}")
+        if not set(AGENT_PHASES) <= set(phases):
+            fail(f"agent CLI: phases {sorted(phases)} miss one of the flip's")
+        t0 = time.perf_counter()
+        agent.send_signal(signal.SIGTERM)
+        try:
+            rc = agent.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            rc = None
+        say(f"agent CLI: SIGTERM -> exit {rc} in {time.perf_counter() - t0:.3f} s")
+        if rc != 0:
+            fail(f"agent CLI: SIGTERM gave exit {rc}: {rig.log_of(agent)[-3000:]}")
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1997,7 +2280,10 @@ def main(argv: list[str] | None = None) -> int:
     # --- 15. the device layer (gpudev) on the card ---------------------------------
     paths["device layer verify smoke"] = check_device_layer(torch, smi_line)
 
-    # --- 16. kernel summary -----------------------------------------------------
+    # --- 16. the port's agent on the card ------------------------------------------
+    paths["agent verify smoke"] = check_agent(torch, smi_line)
+
+    # --- 17. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -2023,7 +2309,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 17. last line ------------------------------------------------------------
+    # --- 18. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -306,9 +306,13 @@ def test_poll_until_deadline():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port imports without JAX, the JAX package or
-    nvcc: nothing is built or loaded at import."""
+    nvcc: nothing is built or loaded at import. The agent's modules
+    (``ccmanager`` and what it imports) import no torch, and importing
+    ``__main__`` does not start the agent."""
     code = """
 import importlib, pkgutil, sys
+import tpu_cc_manager_torch.ccmanager.cli, tpu_cc_manager_torch.ccmanager.localrig
+assert not [m for m in sys.modules if m == "torch" or m.startswith("torch.")]
 import tpu_cc_manager_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_cc_manager_torch.__path__, "tpu_cc_manager_torch.")]
 for name in names:
@@ -322,7 +326,9 @@ print(len(names))
 """
     env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
     env["PATH"] = os.path.dirname(sys.executable)
+    env.pop("NODE_NAME", None)  # so an agent that started would exit 1 at once
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 14
+    assert int(proc.stdout.strip()) >= 69
+    assert "node-name" not in proc.stderr and "tpu-cc-manager" not in proc.stderr
