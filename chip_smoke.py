@@ -156,13 +156,30 @@ counts at 0 just before it and read just after:
    until the node reads ``mode.state=on`` and ``ready.state=true``
    (drain->ready, beside the 90 s budget and the ``nvidia-smi`` line) and
    the agent's own phase seconds from ``/metrics``; SIGTERM must exit 0;
-17. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+17. a rolling CC flip of a pool on the card (``rolling_pool``): four fake HGX
+   H100 nodes (8 GPUs and 4 NVSwitches each, ``FakeGpuBackend`` behind
+   ``NodeBackend``, the operator's pods from ``drain/sim.py``), each a port
+   ``CCManager.watch_and_apply`` on a thread over one port ``FakeKube``,
+   each verifying its flip with K1's matmul smoke on the card (``--kernel
+   cuda``). The port's ``RollingReconfigurator`` flips the pool to on with
+   ``max_unavailable=1``, a ``RolloutLease`` and a ``FlightRecorder``; it is
+   killed (``OrchestratorKilled``) at the first window boundary, after group
+   1 converged, and a successor takes the lease over (a higher generation),
+   reads the ``RolloutRecord`` and resumes. The result must be ok, every
+   node committed and labelled on and ready, never two nodes out of service
+   or two smokes at once, one smoke per node with phase 5's K1 count, all
+   ``sm90``, no torn flight line, each node converged once in the
+   reconstructed timeline, and one patch through the killed orchestrator's
+   ``FencedKube`` refused and counted. The pool wall, each node's desired
+   -> ready wall against the 90 s budget, its smoke share and the takeover
+   gap are printed;
+18. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
    K3 and K4 are checked in phases 3-4 but run on no path; the ResNet and
    ring paths run none of K1-K4: the ResNet's convolutions are cuDNN's, as
    the JAX package's are XLA's, and the ring's blocks are plain PyTorch, as
    the JAX ring's are XLA einsums), then the ``nvidia-smi`` line;
-18. last line ``{"ok": true, "device": {...}}``.
+19. last line ``{"ok": true, "device": {...}}``.
 
 Before phases 12 and 13, which start processes on this card, the script
 prints what its own process still holds there.
@@ -278,6 +295,17 @@ AGENT_LABELS = {
 AGENT_BUDGET_S = 90.0  # drain->ready per node, the north star (BASELINE.md)
 AGENT_FLIP_TIMEOUT_S = 180
 AGENT_PHASES = ("drain", "stage", "reset", "wait_ready", "attest", "smoke", "readmit")
+
+# Phase 17, a rolling CC flip of a pool on the card: four fake HGX H100
+# nodes (the host count of BASELINE.json configs[3], a v5p-32 node pool),
+# flipped to on one node at a time by the port's orchestrator. The first
+# orchestrator is killed at the first window boundary, after group 1
+# converged; a successor takes the lease over once it lapses and resumes.
+POOL_NODES = 4
+POOL_LABEL = ("pool", "chip-smoke")
+POOL_LEASE_S = 3.0  # lease duration: bounds the takeover gap
+POOL_NODE_TIMEOUT_S = 180
+POOL_KILL_POINT = "window-boundary"
 
 
 def fail(message: str) -> None:
@@ -2096,6 +2124,290 @@ def check_agent(torch, smi_line: str) -> dict:
     return launches
 
 
+def rolling_pool(smoke_runner, directory) -> dict:
+    """Phase 17's rollout: ``POOL_NODES`` port agents (``CCManager.
+    watch_and_apply`` on threads over one port ``FakeKube``, each node an
+    HGX ``FakeGpuBackend`` behind ``NodeBackend`` with the operator's pods
+    from ``drain/sim.py``) verify every flip with ``smoke_runner``. The
+    port's ``RollingReconfigurator`` flips the pool to on with
+    ``max_unavailable=1`` under a ``RolloutLease`` and a ``FlightRecorder``;
+    it is killed (``OrchestratorKilled``) at the first window boundary, and
+    a successor takes the lease over, reads the record and resumes. Then one
+    patch goes through the killed orchestrator's ``FencedKube``. Returns the
+    results, timings and observations the phase checks."""
+    import threading
+
+    from tpu_cc_manager_torch.ccmanager import rollout_state
+    from tpu_cc_manager_torch.ccmanager.manager import CCManager
+    from tpu_cc_manager_torch.ccmanager.node import NodeBackend
+    from tpu_cc_manager_torch.ccmanager.rolling import RollingReconfigurator
+    from tpu_cc_manager_torch.drain.sim import add_drainable_node
+    from tpu_cc_manager_torch.faults.plan import OrchestratorKilled
+    from tpu_cc_manager_torch.gpudev.fake import FakeGpuBackend
+    from tpu_cc_manager_torch.kubeclient.api import node_labels
+    from tpu_cc_manager_torch.kubeclient.fake import FakeKube
+    from tpu_cc_manager_torch.labels import (
+        CC_MODE_LABEL,
+        CC_MODE_STATE_LABEL,
+        CC_READY_STATE_LABEL,
+        MODE_OFF,
+        MODE_ON,
+        SLICE_ID_LABEL,
+    )
+    from tpu_cc_manager_torch.obs import flight as flight_mod
+    from tpu_cc_manager_torch.obs.journal import Journal
+    from tpu_cc_manager_torch.utils.metrics import MetricsRegistry
+    from tpu_cc_manager_torch.utils.poll import poll_until
+
+    directory.mkdir(parents=True, exist_ok=True)
+    kube = FakeKube()
+    nodes = [f"pool-node-{i}" for i in range(POOL_NODES)]
+    selector = "=".join(POOL_LABEL)
+    gpus, smokes, lock = {}, [], threading.Lock()
+    # When each node's desired label first reads on, and when it first reads
+    # mode.state=on with ready.state=true (patch reactors run on the
+    # patching thread, so each stamp is taken as the patch lands).
+    desired_at, ready_at = {}, {}
+
+    def on_patch(name, node) -> None:
+        labels, now = node_labels(node), time.perf_counter()
+        with lock:
+            if labels.get(CC_MODE_LABEL) == MODE_ON:
+                desired_at.setdefault(name, now)
+            if labels.get(CC_MODE_STATE_LABEL) == MODE_ON and \
+                    labels.get(CC_READY_STATE_LABEL) == "true":
+                ready_at.setdefault(name, now)
+
+    stop, threads = threading.Event(), []
+    for name in nodes:
+        add_drainable_node(kube, name, AGENT_NS, extra_labels=dict([POOL_LABEL]))
+        gpus[name] = FakeGpuBackend(node_id=name)
+
+        def smoke(workload: str, _node: str = name) -> dict:
+            t0 = time.perf_counter()
+            res = smoke_runner(workload)
+            with lock:
+                smokes.append({"node": _node, "t0": t0, "t1": time.perf_counter(),
+                               "result": res})
+            return res
+
+        agent = CCManager(
+            api=kube, backend=NodeBackend(gpus[name]), node_name=name, default_mode=MODE_OFF,
+            operator_namespace=AGENT_NS, evict_components=True, eviction_poll_interval_s=0.02,
+            smoke_workload="matmul", smoke_runner=smoke, allow_fake_quotes=True,
+            metrics=MetricsRegistry(), journal=Journal(trace_file=""), watch_timeout_s=1,
+            reconnect_delay_s=0.0, readiness_file=str(directory / f"ready-{name}"))
+        threads.append(threading.Thread(target=agent.watch_and_apply, args=(stop,),
+                                        daemon=True, name=f"agent-{name}"))
+    kube.add_patch_reactor(on_patch)
+    for thread in threads:
+        thread.start()
+    try:
+        # The agents settle at off and publish their slice ids, which the
+        # orchestrator groups by: one node per group.
+        if not poll_until(lambda: all(
+                node_labels(kube.get_node(n)).get(CC_MODE_STATE_LABEL) == MODE_OFF
+                and node_labels(kube.get_node(n)).get(SLICE_ID_LABEL) for n in nodes), 60, 0.05):
+            return {"error": "the pool's agents never settled at off"}
+        metrics = MetricsRegistry()
+        flight_path = str(directory / "flight.jsonl")
+
+        def orchestrator(holder: str, record=None):
+            lease = rollout_state.RolloutLease(kube, holder=holder, namespace=AGENT_NS,
+                                               duration_s=POOL_LEASE_S, metrics=metrics)
+            deadline = time.perf_counter() + 4 * POOL_LEASE_S
+            while True:
+                try:
+                    record = lease.acquire()
+                    break
+                except rollout_state.LeaseHeld:
+                    if time.perf_counter() > deadline:
+                        raise
+                    time.sleep(0.02)
+            acquired = time.perf_counter()
+            lease.start_renewer()
+            flight = flight_mod.FlightRecorder(flight_path, generation=lease.generation)
+            flight.record(flight_mod.EVENT_LEASE_ACQUIRED, holder=holder,
+                          resumed=record is not None or None)
+            return lease, record, acquired, flight
+
+        def killer(point: str) -> None:
+            if point == POOL_KILL_POINT:
+                raise OrchestratorKilled(point, 0)
+
+        t0 = time.perf_counter()
+        lease_a, _, _, flight_a = orchestrator("chip-smoke-orchestrator-a")
+        first = RollingReconfigurator(
+            kube, selector, max_unavailable=1, node_timeout_s=POOL_NODE_TIMEOUT_S,
+            poll_interval_s=0.05, lease=lease_a, crash_hook=killer, flight=flight_a,
+            metrics=metrics)
+        try:
+            first.rollout(MODE_ON)
+            return {"error": f"the first orchestrator was not killed at {POOL_KILL_POINT}"}
+        except OrchestratorKilled:
+            killed = time.perf_counter()
+        lease_a.stop_renewer()  # a killed process renews nothing; nothing is released
+        converged_before_kill = sorted(ready_at)
+        lease_b, record, acquired, flight_b = orchestrator("chip-smoke-orchestrator-b")
+        if record is None:
+            return {"error": "the successor found no rollout record in the lease"}
+        done_in_record = sorted(g for g, d in record.done.items() if d.get("ok"))
+        successor = RollingReconfigurator(
+            kube, selector, max_unavailable=1, node_timeout_s=POOL_NODE_TIMEOUT_S,
+            poll_interval_s=0.05, lease=lease_b, resume_record=record, flight=flight_b,
+            metrics=metrics)
+        result = successor.rollout(MODE_ON)
+        wall = time.perf_counter() - t0
+        lease_b.stop_renewer()
+        # The killed orchestrator's fence: its writes are refused and counted.
+        fenced_before = metrics.rollout_totals()["fenced_writes"]
+        try:
+            first.api.patch_node_labels(nodes[0], {CC_MODE_LABEL: MODE_OFF})
+            fenced = False
+        except rollout_state.RolloutFenced:
+            fenced = True
+        exposition = metrics.render_prometheus()
+        lease_b.release(clear_record=result.ok)
+    finally:
+        stop.set()
+        for thread in threads:
+            thread.join(timeout=10)
+    events, torn = flight_mod.read_events(flight_path)
+    return {
+        "result": result, "wall_s": wall, "killed_s": killed - t0,
+        "takeover_gap_s": acquired - killed, "generations": (lease_a.generation,
+                                                             lease_b.generation),
+        "converged_before_kill": converged_before_kill, "done_in_record": done_in_record,
+        "nodes": nodes, "desired_at": desired_at, "ready_at": ready_at, "smokes": smokes,
+        "labels": {n: node_labels(kube.get_node(n)) for n in nodes},
+        "committed": {n: (set(g.committed_cc.values()), set(g.committed_ppcie.values()))
+                      for n, g in gpus.items()},
+        "fenced": fenced, "fenced_writes": (fenced_before,
+                                            metrics.rollout_totals()["fenced_writes"]),
+        "exposition": exposition, "torn_lines": torn,
+        "timeline": flight_mod.reconstruct(events), "t0": t0,
+    }
+
+
+def pool_problems(pool: dict) -> list[str]:
+    """What phase 17 requires of a ``rolling_pool`` run, as a list of the
+    requirements that failed (empty when every one held)."""
+    from tpu_cc_manager_torch.labels import (
+        CC_MODE_STATE_LABEL,
+        CC_READY_STATE_LABEL,
+        MODE_ON,
+    )
+    from tpu_cc_manager_torch.obs.flight import EVENT_NODE_CONVERGED
+
+    if "error" in pool:
+        return [pool["error"]]
+    problems = []
+    result, nodes = pool["result"], pool["nodes"]
+    if not result.ok:
+        problems.append(f"the resumed rollout failed: {result.summary()}")
+    if not result.resumed or pool["generations"][1] <= pool["generations"][0]:
+        problems.append(f"no fenced takeover: resumed={result.resumed} "
+                        f"generations={pool['generations']}")
+    if pool["converged_before_kill"] != nodes[:1] or pool["done_in_record"] != nodes[:1]:
+        problems.append(f"the kill did not land after group 1 alone: converged "
+                        f"{pool['converged_before_kill']}, record {pool['done_in_record']}")
+    for name in nodes:
+        modes, ppcie = pool["committed"][name]
+        labels = pool["labels"][name]
+        if modes != {MODE_ON} or ppcie != {"off"}:
+            problems.append(f"{name}: committed CC {sorted(modes)}, PPCIe {sorted(ppcie)}")
+        if labels.get(CC_MODE_STATE_LABEL) != MODE_ON or \
+                labels.get(CC_READY_STATE_LABEL) != "true":
+            problems.append(f"{name}: labels end at {labels.get(CC_MODE_STATE_LABEL)}, "
+                            f"ready {labels.get(CC_READY_STATE_LABEL)}")
+    if result.max_unavailable_observed != 1:
+        problems.append(f"max_unavailable_observed {result.max_unavailable_observed}, want 1")
+    spans = sorted((pool["desired_at"][n], pool["ready_at"].get(n, float("inf")))
+                   for n in nodes if n in pool["desired_at"])
+    if len(spans) != len(nodes) or any(b[0] < a[1] for a, b in zip(spans, spans[1:])):
+        problems.append("two nodes were out of service at once (desired on, not yet ready)")
+    smokes = sorted(pool["smokes"], key=lambda s: s["t0"])
+    if sorted(s["node"] for s in smokes) != nodes:
+        problems.append(f"smokes ran on {[s['node'] for s in smokes]}, want each node once")
+    if any(b["t0"] < a["t1"] for a, b in zip(smokes, smokes[1:])):
+        problems.append("two smoke children overlapped")
+    if pool["torn_lines"]:
+        problems.append(f"{pool['torn_lines']} torn flight lines")
+    timeline = pool["timeline"]
+    outcomes = {n: e["outcome"] for n, e in timeline["nodes"].items() if not e["skipped"]}
+    if outcomes != {n: EVENT_NODE_CONVERGED for n in nodes} or \
+            timeline["duplicate_node_events"]:
+        problems.append(f"the flight timeline does not show each node converged once: "
+                        f"{timeline['nodes']} duplicates {timeline['duplicate_node_events']}")
+    if not pool["fenced"] or pool["fenced_writes"] != (0, 1) or \
+            "tpu_cc_rollout_fenced_writes_total 1" not in pool["exposition"]:
+        problems.append(f"the killed orchestrator's patch was not refused and counted once: "
+                        f"fenced={pool['fenced']} counts {pool['fenced_writes']}")
+    return problems
+
+
+def check_rolling_pool(torch, smi_line: str, smoke_k1: int) -> dict:
+    """Phase 17: ``rolling_pool`` with K1's matmul smoke on the card as each
+    node's verify smoke. Every requirement of ``pool_problems`` must hold,
+    and each smoke must make ``smoke_k1`` K1 launches (phase 5's matmul
+    smoke), all on ``sm90``. Returns the smokes' launch counts."""
+    import pathlib
+    import shutil
+
+    from tpu_cc_manager_torch.smoke.runner import run_workload_subprocess
+
+    def smoke(workload: str) -> dict:
+        return run_workload_subprocess(workload, timeout_s=300, extra_args=["--kernel", "cuda"])
+
+    directory = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_pool"
+    shutil.rmtree(directory, ignore_errors=True)
+    pool = rolling_pool(smoke, directory)
+    problems = pool_problems(pool)
+    if "error" in pool:
+        fail(f"rolling pool: {pool['error']}")
+    say(f"rolling pool: {POOL_NODES} fake HGX nodes (8 GPUs, 4 NVSwitches each) flipped to on, "
+        f"max_unavailable 1: wall {pool['wall_s']:.3f} s; orchestrator killed at "
+        f"{POOL_KILL_POINT} {pool['killed_s']:.3f} s in, after {pool['converged_before_kill']}; "
+        f"takeover gap {pool['takeover_gap_s']:.3f} s (lease {POOL_LEASE_S:g} s), generations "
+        f"{pool['generations']}; {smi_line}")
+    say(f"rolling pool: result {json.dumps(pool['result'].summary())}")
+    smokes = {s["node"]: s for s in pool["smokes"]}
+    launches = {}
+    for name in pool["nodes"]:
+        node_s = pool["ready_at"].get(name, float("nan")) - pool["desired_at"].get(name, float("nan"))
+        s = smokes.get(name)
+        smoke_s = s["t1"] - s["t0"] if s else float("nan")
+        say(f"rolling pool: {name} desired on -> ready {node_s:.3f} s (budget "
+            f"{AGENT_BUDGET_S:g} s per node), smoke {smoke_s:.3f} s, smoke share "
+            f"{smoke_s / node_s:.4f}")
+        if not node_s < AGENT_BUDGET_S:
+            problems.append(f"{name} took {node_s:.3f} s, over the {AGENT_BUDGET_S:g} s budget")
+        if s is None:
+            continue
+        res = s["result"]
+        if not res.get("ok"):
+            problems.append(f"{name}'s verify smoke failed: {json.dumps(res, default=str)[:500]}")
+            continue
+        counts = {"K1/sm90": 0, "K1/simt": 0, **res.get("kernel_launches", {}),
+                  **flat_variants(res.get("kernel_launches_by_variant", {}))}
+        say(f"rolling pool: {name} verify smoke ok={res['ok']} devices={res.get('devices')} "
+            f"K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
+        check_devices(f"rolling pool verify smoke on {name}", res, 1)
+        if counts["K1/sm90"] != smoke_k1 or counts["K1/simt"] != 0:
+            problems.append(f"{name}'s verify smoke made K1 sm90={counts['K1/sm90']} "
+                            f"simt={counts['K1/simt']}, want {smoke_k1} on sm90")
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    timeline = pool["timeline"]
+    say(f"rolling pool: flight torn lines {pool['torn_lines']}, generations "
+        f"{timeline['generations']}, resumes {timeline['resumes']}, node outcomes "
+        f"{json.dumps({n: e['outcome'] for n, e in timeline['nodes'].items()})}; fenced patch "
+        f"refused={pool['fenced']}, tpu_cc_rollout_fenced_writes_total {pool['fenced_writes'][1]}")
+    if problems:
+        fail("rolling pool: " + "; ".join(problems))
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--only-kernels", action="store_true",
@@ -2147,7 +2459,7 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     built = _build.build()
     say(f"build: {json.dumps({k: round(v, 2) for k, v in built.items()})} "
-        f"wall {time.perf_counter() - t0:.2f}s")
+        f"wall {time.perf_counter() - t0:.2f}s into {_build.build_dir()}")
     for name in _build.SIGNATURES:
         for line in _build.build_log(name).splitlines():
             # ptxas also warns here when it has to serialize wgmma groups.
@@ -2283,7 +2595,11 @@ def main(argv: list[str] | None = None) -> int:
     # --- 16. the port's agent on the card ------------------------------------------
     paths["agent verify smoke"] = check_agent(torch, smi_line)
 
-    # --- 17. kernel summary -----------------------------------------------------
+    # --- 17. a rolling flip of a pool of four nodes, killed and resumed ------------
+    paths["rolling pool verify smoke"] = check_rolling_pool(
+        torch, smi_line, paths["matmul smoke"]["K1"])
+
+    # --- 18. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -2309,7 +2625,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 18. last line ------------------------------------------------------------
+    # --- 19. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -6,7 +6,8 @@ outputs: label constants, retry backoff schedules, the metrics exposition
 byte for byte, the intent journal's file bytes (each package replays the
 other's file), and ``RestKube`` over HTTP against ``hack/mock_apiserver.py``.
 Every copied line of code equals the JAX file's but the manager's device
-seam (``ccmanager/node.py``); three lines of prose are reworded."""
+seam (``ccmanager/node.py``) and the serving harness's fake nodes; a few
+lines of prose are reworded."""
 
 import difflib
 import importlib
@@ -35,14 +36,14 @@ MODULES = [
     "ccmanager.slicecoord", "ccmanager.informer", "ccmanager.metrics_server",
     "ccmanager.multislice", "ccmanager.watchdog", "ccmanager.remediation",
     "ccmanager.manager", "ccmanager.cli",
+    "obs.slo", "obs.flight", "obs.failslow", "faults", "faults.plan", "faults.kube",
+    "drain.sim", "ccmanager.rollout_state", "ccmanager.rolling", "serve", "serve.server",
+    "serve.driver", "serve.sweep", "serve.harness",
 ]
 # The contract names of the device seam: the port's modules import
 # ``ccmanager.node``'s views and ``GpuError`` in their place.
 RENAMES = {"TpuCcBackend": "NodeBackend", "SliceTopology": "SliceView",
-           "TpuChip": "ChipView", "TpuError": "GpuError"}
-# What the port leaves out: the fleet rollout's observability, which
-# ``obs/__init__.py`` of the JAX package re-exports (ROADMAP queue 1).
-NOT_PORTED = {"obs": {"FlightRecorder", "SloEvaluator", "flight", "slo"}}
+           "TpuChip": "ChipView", "TpuError": "GpuError", "FakeTpuBackend": "FakeGpuBackend"}
 # Names the CLI takes from its device layer: present, typed by that layer.
 DEVICE_LAYER = {"ccmanager.cli": {"load_backend"}}
 
@@ -96,10 +97,7 @@ def surface(obj) -> dict:
 @pytest.mark.parametrize("name", MODULES)
 def test_every_public_name_keeps_its_signature(name):
     jax_mod, port_mod = modules(name)
-    skipped = NOT_PORTED.get(name, set())
     for attr in public_names(jax_mod):
-        if attr in skipped:
-            continue
         port_attr = RENAMES.get(attr, attr)
         assert hasattr(port_mod, port_attr), f"{name}.{port_attr} missing"
         if attr in RENAMES or attr in DEVICE_LAYER.get(name, ()):
@@ -272,28 +270,45 @@ def test_restkube_sees_the_same_nodes_and_patches(two_apiservers):
 
 
 # The only lines of code (normalised) where the port's copies differ from
-# the JAX modules: the device seam in manager.py. Each is listed in
-# CHANGES.md.
+# the JAX modules: the device seam in manager.py and the serving harness's
+# backend construction. Each is listed in CHANGES.md.
 SEAM = {
     "ccmanager/manager.py": (
         ["                from tpu_cc_manager.tpudev.fake import FakeTpuBackend",
-         "                allow_fake_quotes = isinstance(backend, FakeTpuBackend)",
-         "            from tpu_cc_manager.ccmanager.rolling import SLICE_ID_LABEL"],
+         "                allow_fake_quotes = isinstance(backend, FakeTpuBackend)"],
         ["                from tpu_cc_manager.tpudev.contract import is_fake_backend",
-         "                allow_fake_quotes = is_fake_backend(backend)",
-         "            from tpu_cc_manager.labels import SLICE_ID_LABEL"]),
+         "                allow_fake_quotes = is_fake_backend(backend)"]),
+    # The serving harness's pool: one HGX-style fake node behind the
+    # manager's NodeBackend where the JAX harness builds a two-chip v5p.
+    "serve/harness.py": (
+        ["        self.backends: dict[str, FakeTpuBackend] = {}",
+         "            backend = FakeTpuBackend(",
+         "                num_chips=2,",
+         '                accelerator_type="v5p-8",',
+         '                slice_id=f"serve-slice-{i}",',
+         "            )"],
+        ["from tpu_cc_manager.tpudev.contract import TpuCcBackend",
+         "        self.backends: dict[str, TpuCcBackend] = {}",
+         "            backend = TpuCcBackend(FakeTpuBackend(",
+         '                node_id=f"serve-slice-{i}",',
+         "            ))"]),
 }
 # Lines of prose (docstrings, comments) the copies reword: a path on the
 # author's machine and the numbers of the changes that added a feature,
 # which a copy does not carry.
-PROSE = {"ccmanager/remediation.py": 2, "ccmanager/multislice.py": 1}
+PROSE = {"ccmanager/remediation.py": 2, "ccmanager/multislice.py": 1,
+         "ccmanager/rollout_state.py": 3, "ccmanager/rolling.py": 2, "serve/sweep.py": 1}
 COPIES = ["ccmanager/watchdog.py", "ccmanager/remediation.py", "ccmanager/slicecoord.py",
           "ccmanager/multislice.py", "ccmanager/intent_journal.py", "ccmanager/informer.py",
           "ccmanager/metrics_server.py", "version.py", "labels.py", "utils/locks.py",
           "utils/logging.py", "utils/retry.py", "utils/metrics.py", "obs/journal.py",
           "obs/trace.py", "kubeclient/__init__.py", "kubeclient/api.py", "kubeclient/rest.py",
           "kubeclient/fake.py", "drain/__init__.py", "drain/pause.py", "drain/state.py",
-          "drain/handshake.py", "drain/evict.py"]
+          "drain/handshake.py", "drain/evict.py", "obs/__init__.py", "obs/slo.py",
+          "obs/flight.py", "obs/failslow.py", "faults/__init__.py", "faults/plan.py",
+          "faults/kube.py", "drain/sim.py", "ccmanager/rollout_state.py",
+          "ccmanager/rolling.py", "serve/__init__.py", "serve/server.py", "serve/driver.py",
+          "serve/sweep.py"]
 
 
 def prose_lines(text: str) -> set[int]:
@@ -307,7 +322,7 @@ def prose_lines(text: str) -> set[int]:
     return lines
 
 
-@pytest.mark.parametrize("rel", ["ccmanager/manager.py"] + COPIES)
+@pytest.mark.parametrize("rel", ["ccmanager/manager.py", "serve/harness.py"] + COPIES)
 def test_the_copies_differ_from_the_jax_files_only_at_the_seam(rel):
     texts = []
     for package in ("tpu_cc_manager", "tpu_cc_manager_torch"):

@@ -1,0 +1,162 @@
+"""The JAX fleet rollout suites, run on the port.
+
+The JAX suites of the fleet rollout (``obs/slo``, ``obs/flight``,
+``obs/failslow``, ``faults``, ``drain/sim``, ``ccmanager/rollout_state``,
+``ccmanager/rolling`` and ``serve``) run on the port through
+:func:`port_suite`: each ``tests/test_torch_<suite>.py`` executes the JAX
+file ``tests/test_<suite>.py`` itself, with every import from
+``tpu_cc_manager`` read from ``tpu_cc_manager_torch``, so the port is held
+to the JAX test's own inputs, bounds and tolerances and the two cannot
+drift. The JAX side is the JAX file, collected on its own;
+``test_torch_fleet_parity.py`` runs both packages side by side.
+
+The device layers differ. Where a JAX suite builds ``FakeTpuBackend``, the
+port's side builds :class:`FakeNode`: the port's ``NodeBackend`` over an
+HGX-style ``FakeGpuBackend``, as the port's agent and serving harness build
+it, with the fake's test controls (``fail_next``, ``healthy``,
+``set_preempted``, ``op_log``, ...) reachable on the node and ``committed``
+read in label modes.
+"""
+
+import ast
+import pathlib
+
+import pytest
+from _pytest.assertion.rewrite import rewrite_asserts
+
+from tpu_cc_manager_torch.ccmanager.node import NodeBackend, to_label_mode
+from tpu_cc_manager_torch.gpudev.fake import FakeGpuBackend
+from tpu_cc_manager_torch.kubeclient.fake import FakeKube
+
+TESTS = pathlib.Path(__file__).resolve().parent
+
+#: Imports a JAX suite makes that the port answers with a name of its own.
+SEAMS = {("tpu_cc_manager.tpudev.fake", "FakeTpuBackend"): (__name__, "FakeNode")}
+
+
+class FakeNode(NodeBackend):
+    """The port's fake node as the JAX suites drive ``FakeTpuBackend``: the
+    GPUs are the chips; the fake's controls and state pass through."""
+
+    _OWN = ("gpu", "state_dir", "_devices")
+    def __init__(self, num_chips: int = 4, accelerator_type: str = "h100-sxm",
+                 slice_id: str = "fake-node-0", num_hosts: int = 1, host_index: int = 0,
+                 **kwargs) -> None:
+        if num_hosts != 1 or host_index != 0:
+            raise ValueError("an H100 node is a one-host slice")
+        super().__init__(FakeGpuBackend(num_gpus=num_chips, node_id=slice_id, **kwargs))
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["gpu"], name)
+
+    def __setattr__(self, name, value) -> None:
+        # The fake's state (``healthy``, ``fail``, ...) is set on the fake;
+        # anything else (a test's stand-in for a method) on the node.
+        if name not in self._OWN and name in vars(self.gpu):
+            setattr(self.gpu, name, value)
+        else:
+            object.__setattr__(self, name, value)
+
+    @property
+    def committed(self) -> dict[int, str]:
+        """Each GPU's committed mode, by index, in label modes."""
+        return {d.index: to_label_mode(self.gpu._mode_of(d.index))
+                for d in self.gpu.discover().devices}
+
+
+def _port_import(node: ast.ImportFrom) -> list[ast.ImportFrom]:
+    """``node`` read from the port: the seam names from their own module,
+    everything else from ``tpu_cc_manager_torch``."""
+    module = node.module or ""
+    if module != "tpu_cc_manager" and not module.startswith("tpu_cc_manager."):
+        return [node]
+    kept, seams = [], []
+    for alias in node.names:
+        seam = SEAMS.get((module, alias.name))
+        if seam is None:
+            kept.append(alias)
+        else:
+            seams.append(ast.ImportFrom(seam[0], [ast.alias(seam[1], alias.asname or alias.name)],
+                                        0))
+    port = "tpu_cc_manager_torch" + module[len("tpu_cc_manager"):]
+    out = [ast.ImportFrom(port, kept, 0)] if kept else []
+    return [ast.copy_location(n, node) for n in out + seams]
+
+
+class _ToPort(ast.NodeTransformer):
+    def visit_ImportFrom(self, node):
+        return _port_import(node)
+
+    def visit_Import(self, node):
+        for alias in node.names:
+            if alias.name.split(".")[0] == "tpu_cc_manager":
+                raise ValueError(f"line {node.lineno}: import {alias.name} has no port form")
+        return node
+
+
+def port_suite(namespace: dict, suite: str, drop: tuple[str, ...] = ()) -> None:
+    """Run ``tests/<suite>.py`` into ``namespace`` (the calling test
+    module's globals) with its imports read from the port. ``drop`` names
+    top-level definitions and imported names to leave out; each must
+    exist, so a renamed JAX case fails here instead of running nowhere.
+    Assertions are rewritten as pytest rewrites a test module's, and
+    tracebacks point at the JAX file's lines."""
+    path = TESTS / f"{suite}.py"
+    source = path.read_bytes()
+    tree = ast.parse(source, filename=str(path))
+    body, found = [], set()
+    for node in tree.body:
+        name = getattr(node, "name", None)
+        if name in drop:
+            found.add(name)
+            continue
+        if isinstance(node, ast.ImportFrom):
+            names = [a for a in node.names if (a.asname or a.name) not in drop]
+            found.update((a.asname or a.name) for a in node.names if a not in names)
+            if not names:
+                continue
+            node.names = names
+        body.append(node)
+    missing = set(drop) - found
+    if missing:
+        raise ValueError(f"{suite} has no top-level {sorted(missing)}")
+    tree.body = body
+    tree = ast.fix_missing_locations(_ToPort().visit(tree))
+    rewrite_asserts(tree, source, str(path))
+    exec(compile(tree, str(path), "exec"), namespace)
+
+
+@pytest.fixture()
+def fake_kube():
+    """The port's ``FakeKube`` (the conftest one is the JAX package's)."""
+    return FakeKube()
+
+
+def test_port_suite_reads_the_port():
+    ns = {"__name__": "port_suite_probe"}
+    port_suite(ns, "test_rollout_resume", drop=("federation_mod", "_run_crash_resume"))
+    assert ns["RollingReconfigurator"].__module__ == "tpu_cc_manager_torch.ccmanager.rolling"
+    assert ns["rollout_state"].__name__ == "tpu_cc_manager_torch.ccmanager.rollout_state"
+    assert "federation_mod" not in ns and "_run_crash_resume" not in ns
+    assert ns["test_record_round_trip"].__code__.co_filename == str(TESTS / "test_rollout_resume.py")
+    ns = {"__name__": "port_suite_probe"}
+    port_suite(ns, "test_chaos")
+    assert ns["FakeTpuBackend"] is FakeNode
+    with pytest.raises(ValueError, match="no top-level"):
+        port_suite({"__name__": "port_suite_probe"}, "test_slo", drop=("test_gone",))
+
+
+def test_the_fake_node_passes_the_fakes_controls_through():
+    node = FakeNode(num_chips=2, slice_id="s0", reset_latency_s=0.0)
+    topo = node.discover()
+    assert (topo.slice_id, len(topo.chips), topo.num_hosts) == ("s0", 2, 1)
+    node.healthy = False
+    assert node.gpu.healthy is False and node.probe_runtime_health().healthy is False
+    node.fail_next("stage")
+    with pytest.raises(Exception, match="injected fault in stage"):
+        node.stage_cc_mode(topo.chips, "on")
+    node.stage_cc_mode(topo.chips, "slice")
+    node.reset(topo.chips)
+    assert node.committed == {0: "slice", 1: "slice"}
+    with pytest.raises(ValueError, match="one-host"):
+        FakeNode(num_hosts=2)

@@ -195,7 +195,8 @@ class TestBuild:
         monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
         with pytest.raises(_build.KernelBuildError, match="nvcc"):
             _build.build()
-        assert not (tmp_path / "kernels").exists()
+        assert _build.build_dir() == tmp_path / "kernels"
+        assert not list((tmp_path / "kernels").iterdir())
 
     def test_library_is_keyed_by_its_source(self):
         from tpu_cc_manager_torch.ops import _build

@@ -5,9 +5,10 @@ gloo processes at ``MeshSpec(dcn=2, dp=1, fsdp=2, tp=2)`` (this file run as a
 script is each rank, with torchrun's environment names). Each rank runs 6
 uninterrupted reference steps; then, from a fresh state of the same seed, 3
 steps and ``TrainCheckpointer.save``, and waits. Meanwhile this process
-bounces the fake pool to CC-on with the control plane's
-``RollingReconfigurator`` (one slice group at a time) and
-``multislice.verify_pool_attestation`` checks every slice's quote. Then the
+bounces the fake pool to CC-on with the port's own control plane: its
+``RollingReconfigurator`` (one slice group at a time) over its ``FakeKube``,
+and its ``multislice.verify_pool_attestation`` checks every slice's quote,
+each quote from the port's fake H100 node behind ``NodeBackend``. Then the
 ranks re-verify the data mesh, restore into a state from another seed and
 train 3 more steps: the losses must repeat the reference's last three bit
 for bit (parameters, AdamW moments and the step all survived).
@@ -20,13 +21,15 @@ import sys
 import torch
 import torch.distributed as dist
 
-from tpu_cc_manager.ccmanager import multislice
-from tpu_cc_manager.ccmanager.rolling import RollingReconfigurator
-from tpu_cc_manager.drain.state import set_cc_state_label
-from tpu_cc_manager.kubeclient.api import node_labels
-from tpu_cc_manager.labels import CC_MODE_LABEL, CC_MODE_STATE_LABEL, SLICE_ID_LABEL
-from tpu_cc_manager.tpudev.attestation import fresh_nonce, verify_quote
-from tpu_cc_manager.tpudev.fake import FakeTpuBackend
+from tpu_cc_manager_torch.ccmanager import multislice
+from tpu_cc_manager_torch.ccmanager.node import NodeBackend
+from tpu_cc_manager_torch.ccmanager.rolling import RollingReconfigurator
+from tpu_cc_manager_torch.drain.state import set_cc_state_label
+from tpu_cc_manager_torch.gpudev.attestation import fresh_nonce, verify_quote
+from tpu_cc_manager_torch.gpudev.fake import FakeGpuBackend
+from tpu_cc_manager_torch.kubeclient.api import node_labels
+from tpu_cc_manager_torch.kubeclient.fake import FakeKube
+from tpu_cc_manager_torch.labels import CC_MODE_LABEL, CC_MODE_STATE_LABEL, SLICE_ID_LABEL
 from tpu_cc_manager_torch.models.llama import LlamaConfig
 from tpu_cc_manager_torch.parallel import distributed as tdist
 from tpu_cc_manager_torch.parallel import mesh as tmesh
@@ -56,7 +59,7 @@ def _agent_reactor(fake_kube):
     """Emulate the per-node DaemonSet agents: when a node's desired label
     changes, 'apply' it (fake backend per slice) and report state +
     attestation, as CCManager does after a real reconfigure."""
-    backends = {s: FakeTpuBackend(num_chips=2, slice_id=s) for s in POOL}
+    backends = {s: NodeBackend(FakeGpuBackend(num_gpus=2, node_id=s)) for s in POOL}
     applying: set[str] = set()  # the reactor's own patches re-trigger it
 
     def reactor(name, patched):
@@ -166,7 +169,8 @@ def _bounce_pool(fake_kube) -> None:
     assert set(slices) == {"slice-a", "slice-b"}
 
 
-def test_rolling_bounce_under_training_resumes_exactly(fake_kube, tmp_path):
+def test_rolling_bounce_under_training_resumes_exactly(tmp_path):
+    fake_kube = FakeKube()
     _make_pool(fake_kube)
     _agent_reactor(fake_kube)
     with Ranks([sys.executable, os.path.abspath(__file__), str(tmp_path)], WORLD,

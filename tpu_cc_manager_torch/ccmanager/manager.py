@@ -1515,7 +1515,7 @@ class CCManager:
         never fail a reconcile."""
         try:
             from tpu_cc_manager_torch.ccmanager import multislice
-            from tpu_cc_manager_torch.labels import SLICE_ID_LABEL
+            from tpu_cc_manager_torch.ccmanager.rolling import SLICE_ID_LABEL
 
             # One merge-patch for slice id + quote labels (or None-clears
             # when mode off): a single apiserver round trip, and no window

@@ -153,6 +153,11 @@ class NodeBackend:
     def preemption_notice(self) -> bool:
         return self.gpu.preemption_notice()
 
+    def set_brownout(self, factor: float) -> None:
+        """Arm or clear a brownout on a device layer that models one (the
+        fake, ``FakeGpuBackend.set_brownout``)."""
+        self.gpu.set_brownout(factor)
+
 
 def is_fake_backend(backend) -> bool:
     """Whether the operator chose the fake device layer, whose HMAC quotes

@@ -107,6 +107,10 @@ class FakeGpuBackend(GpuCcBackend):
         self.reset_latency_s = reset_latency_s
         self.boot_latency_s = boot_latency_s
         self.reset_parallelism_override = reset_parallelism_override
+        # Brownout (a gray failure, faults/plan.py seed_brownout): every
+        # reset and boot wall is multiplied by this factor while > 1; the
+        # node fails slow, not stop, and health probes stay green.
+        self.brownout_factor = 1.0
         # Fault injection: op name -> remaining failures (-1 = always).
         self.fail: dict[str, int] = {}
         # Ordered (op, payload) log for ordering assertions.
@@ -119,6 +123,11 @@ class FakeGpuBackend(GpuCcBackend):
 
     def fail_next(self, op: str, times: int = 1) -> None:
         self.fail[op] = times
+
+    def set_brownout(self, factor: float) -> None:
+        """Arm (factor > 1) or clear (factor = 1) a brownout: every reset
+        and boot wall scales by ``factor`` while health probes stay green."""
+        self.brownout_factor = max(1.0, float(factor))
 
     def _maybe_fail(self, op: str) -> None:
         n = self.fail.get(op, 0)
@@ -143,11 +152,15 @@ class FakeGpuBackend(GpuCcBackend):
         return tuple(devices)
 
     def _latency_for(self, spec: float | list[float], index: int) -> float:
+        """Per-device latency from a scalar-or-list spec (a short list
+        repeats its last value), scaled by the brownout factor."""
         if isinstance(spec, (list, tuple)):
             if not spec:
                 return 0.0
-            return float(spec[index] if index < len(spec) else spec[-1])
-        return float(spec)
+            base = float(spec[index] if index < len(spec) else spec[-1])
+        else:
+            base = float(spec)
+        return base * self.brownout_factor
 
     # ---- contract -------------------------------------------------------------
 

@@ -6,7 +6,7 @@ libraries there. Each ``csrc/<name>.cu`` compiles on first use into its own
 shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v -o <build dir>/<name>-<hash>.so
 
 keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
 flags, and is loaded with ``ctypes``. Pointers and the stream cross as
@@ -14,15 +14,28 @@ flags, and is loaded with ``ctypes``. Pointers and the stream cross as
 raises when it is not 0. Building uses the repository's sources only.
 Nothing happens at import: the first :func:`load` (or an explicit
 :func:`build`) compiles, so CPU-only hosts never need ``nvcc``.
+
+The build directory is the first of :func:`candidate_build_dirs` this
+process can create and write, chosen as the JAX package chooses its
+compilation cache: ``$TPU_CC_CACHE_DIR`` (the DaemonSet sets it), then
+``build/torch_kernels`` beside the package, then the tmpdir. An image's
+site-packages is root-owned while the agent runs as nonroot, so a node
+falls through to the later candidates. A library found there is loaded
+into the process, so a candidate is created private (mode 0700), and one
+that exists is taken only when this user owns it and no one else may write
+it: another user cannot plant a library in a shared tmpdir.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
+import stat
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -93,6 +106,53 @@ def _nvcc() -> str:
     return nvcc
 
 
+def candidate_build_dirs() -> list[pathlib.Path]:
+    """Preference order: a subdirectory of ``$TPU_CC_CACHE_DIR`` (preferred,
+    not exclusive: an override the kubelet created root-owned falls
+    through), ``BUILD_DIR``, then ``<tmpdir>/tpu-cc-torch-kernels``."""
+    candidates = [BUILD_DIR, pathlib.Path(tempfile.gettempdir()) / "tpu-cc-torch-kernels"]
+    override = os.environ.get("TPU_CC_CACHE_DIR")
+    if override:
+        candidates.insert(0, pathlib.Path(override) / "torch_kernels")
+    return candidates
+
+
+def _unsafe(candidate: pathlib.Path) -> str | None:
+    """Why another user could put a library in ``candidate``, or None."""
+    st = candidate.stat()
+    if st.st_uid != os.geteuid():
+        return f"owned by uid {st.st_uid}, not {os.geteuid()}"
+    if st.st_mode & (stat.S_IWGRP | stat.S_IWOTH):
+        return f"group- or other-writable (mode {stat.S_IMODE(st.st_mode):o})"
+    return None
+
+
+@functools.cache
+def _first_writable(candidates: tuple[pathlib.Path, ...]) -> pathlib.Path:
+    errors = []
+    for candidate in candidates:
+        try:
+            candidate.mkdir(mode=0o700, parents=True, exist_ok=True)
+            unsafe = _unsafe(candidate)
+            if unsafe:
+                errors.append(f"{candidate}: {unsafe}")
+                continue
+            tempfile.TemporaryFile(dir=candidate).close()
+            return candidate
+        except OSError as e:
+            errors.append(f"{candidate}: {e.strerror or e}")
+    raise KernelBuildError("no writable kernel build directory: " + "; ".join(errors))
+
+
+def build_dir() -> pathlib.Path:
+    """The first of :func:`candidate_build_dirs` that can be created and
+    written and that no other user may write, resolved once per process
+    (per candidate list). Raises
+    :class:`KernelBuildError` naming every candidate when none can: the
+    port has no mode without built libraries."""
+    return _first_writable(tuple(candidate_build_dirs()))
+
+
 def library_path(name: str) -> pathlib.Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by the source, every shared
     header under ``csrc/`` (a header edit rebuilds) and the flags."""
@@ -101,7 +161,7 @@ def library_path(name: str) -> pathlib.Path:
         digest.update(header.name.encode())
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, float]:
@@ -115,7 +175,6 @@ def build(names: list[str] | None = None) -> dict[str, float]:
     if not missing:
         return {}
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending = {}
     for name in missing:
         out = library_path(name)
