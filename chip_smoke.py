@@ -156,7 +156,7 @@ counts at 0 just before it and read just after:
    until the node reads ``mode.state=on`` and ``ready.state=true``
    (drain->ready, beside the 90 s budget and the ``nvidia-smi`` line) and
    the agent's own phase seconds from ``/metrics``; SIGTERM must exit 0;
-17. a rolling CC flip of a pool on the card (``rolling_pool``): four fake HGX
+17. a rolling CC flip of a pool on the card (``rolling_pool``): two fake HGX
    H100 nodes (8 GPUs and 4 NVSwitches each, ``FakeGpuBackend`` behind
    ``NodeBackend``, the operator's pods from ``drain/sim.py``), each a port
    ``CCManager.watch_and_apply`` on a thread over one port ``FakeKube``,
@@ -173,13 +173,35 @@ counts at 0 just before it and read just after:
    ``FencedKube`` refused and counted. The pool wall, each node's desired
    -> ready wall against the 90 s budget, its smoke share and the takeover
    gap are printed;
-18. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+18. a federated CC flip of two regions through the port's operator CLI
+   (``federated_pool``): one fake HGX H100 node per region (``r1``, ``r2``,
+   the federation's region label), each an agent as in phase 17, flipped to
+   on by ``ctl.cmd_rollout`` with ``--regions r1,r2`` and a failure budget
+   of one node: one lease-fenced orchestrator shard per region under one
+   parent record. ctl's orchestrator is wrapped so that the r1 shard is
+   killed at its first parent exchange (``federation-boundary``), before
+   it touched its node; ``rollout --resume --regions r1,r2`` resumes its
+   record. The result must be ok, both nodes committed and labelled on and
+   ready, one smoke per node with phase 5's K1 count, all ``sm90``, the
+   resumed shard's record bound to the parent's digest, the parent record
+   complete with each region's node counted once and no budget spent, one
+   patch through the killed shard's ``FencedKube`` refused and counted;
+   ``ctl rollout-timeline --stitch`` over the two regional flight files
+   must render, with 0 torn lines and each node converged once; a
+   ``FleetGateway`` over the two agents' registries (``local_target``)
+   serves ``/metrics``, whose ``tpu_cc_phase_seconds`` ``_count`` and
+   ``_sum`` must equal the nodes' sums and which ``lint/expo.py`` must
+   pass, and ``/fleetz``, listing both nodes fresh; ``ctl status`` must
+   list both nodes on. The pool wall, each node's desired -> ready wall
+   against the 90 s budget and its smoke share, the takeover gap, the
+   gateway's sweep and the phase's wall are printed;
+19. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
    K3 and K4 are checked in phases 3-4 but run on no path; the ResNet and
    ring paths run none of K1-K4: the ResNet's convolutions are cuDNN's, as
    the JAX package's are XLA's, and the ring's blocks are plain PyTorch, as
    the JAX ring's are XLA einsums), then the ``nvidia-smi`` line;
-19. last line ``{"ok": true, "device": {...}}``.
+20. last line ``{"ok": true, "device": {...}}``.
 
 Before phases 12 and 13, which start processes on this card, the script
 prints what its own process still holds there.
@@ -296,16 +318,29 @@ AGENT_BUDGET_S = 90.0  # drain->ready per node, the north star (BASELINE.md)
 AGENT_FLIP_TIMEOUT_S = 180
 AGENT_PHASES = ("drain", "stage", "reset", "wait_ready", "attest", "smoke", "readmit")
 
-# Phase 17, a rolling CC flip of a pool on the card: four fake HGX H100
-# nodes (the host count of BASELINE.json configs[3], a v5p-32 node pool),
-# flipped to on one node at a time by the port's orchestrator. The first
-# orchestrator is killed at the first window boundary, after group 1
+# Phase 17, a rolling CC flip of a pool on the card: two fake HGX H100
+# nodes, flipped to on one node at a time by the port's orchestrator. The
+# first orchestrator is killed at the first window boundary, after group 1
 # converged; a successor takes the lease over once it lapses and resumes.
-POOL_NODES = 4
+# Four nodes (the host count of BASELINE.json configs[3], a v5p-32 node
+# pool) until phase 18 took two of its verify smokes: the K1 launches of a
+# run stay what they were.
+POOL_NODES = 2
 POOL_LABEL = ("pool", "chip-smoke")
 POOL_LEASE_S = 3.0  # lease duration: bounds the takeover gap
 POOL_NODE_TIMEOUT_S = 180
 POOL_KILL_POINT = "window-boundary"
+
+# Phase 18, a federated CC flip of two regions on the card through the
+# port's operator CLI (``ctl.cmd_rollout --regions``): one fake HGX H100
+# node per region, a failure budget of one node over both. The r1 shard is
+# killed at its first parent exchange (``federation-boundary``, before it
+# touched a node) and resumed by ``rollout --resume --regions``.
+FED_REGIONS = ("r1", "r2")
+FED_LABEL = ("pool", "chip-smoke-fed")
+FED_KILL_REGION = "r1"
+FED_KILL_POINT = "federation-boundary"
+FED_BUDGET = 1
 
 
 def fail(message: str) -> None:
@@ -2124,28 +2159,24 @@ def check_agent(torch, smi_line: str) -> dict:
     return launches
 
 
-def rolling_pool(smoke_runner, directory) -> dict:
-    """Phase 17's rollout: ``POOL_NODES`` port agents (``CCManager.
-    watch_and_apply`` on threads over one port ``FakeKube``, each node an
-    HGX ``FakeGpuBackend`` behind ``NodeBackend`` with the operator's pods
-    from ``drain/sim.py``) verify every flip with ``smoke_runner``. The
-    port's ``RollingReconfigurator`` flips the pool to on with
-    ``max_unavailable=1`` under a ``RolloutLease`` and a ``FlightRecorder``;
-    it is killed (``OrchestratorKilled``) at the first window boundary, and
-    a successor takes the lease over, reads the record and resumes. Then one
-    patch goes through the killed orchestrator's ``FencedKube``. Returns the
-    results, timings and observations the phase checks."""
+def pool_agents(kube, node_labels_of: dict, smoke_runner, directory) -> dict:
+    """One port agent per node of ``node_labels_of`` (name -> extra labels):
+    each node an HGX ``FakeGpuBackend`` behind ``NodeBackend`` with the
+    operator's pods from ``drain/sim.py``, its ``CCManager.watch_and_apply``
+    on a thread over ``kube``, verifying every flip with ``smoke_runner``.
+    Each node's desired label is stamped when it first reads on, and its
+    ready when it first reads ``mode.state=on`` with ``ready.state=true``
+    (patch reactors run on the patching thread, so each stamp is taken as
+    the patch lands). Returns the pool's state; ``start`` starts the agents
+    and waits until every node settled at off with its slice id published
+    (False when they never did), ``stop`` stops them."""
     import threading
 
-    from tpu_cc_manager_torch.ccmanager import rollout_state
     from tpu_cc_manager_torch.ccmanager.manager import CCManager
     from tpu_cc_manager_torch.ccmanager.node import NodeBackend
-    from tpu_cc_manager_torch.ccmanager.rolling import RollingReconfigurator
     from tpu_cc_manager_torch.drain.sim import add_drainable_node
-    from tpu_cc_manager_torch.faults.plan import OrchestratorKilled
     from tpu_cc_manager_torch.gpudev.fake import FakeGpuBackend
     from tpu_cc_manager_torch.kubeclient.api import node_labels
-    from tpu_cc_manager_torch.kubeclient.fake import FakeKube
     from tpu_cc_manager_torch.labels import (
         CC_MODE_LABEL,
         CC_MODE_STATE_LABEL,
@@ -2154,60 +2185,94 @@ def rolling_pool(smoke_runner, directory) -> dict:
         MODE_ON,
         SLICE_ID_LABEL,
     )
-    from tpu_cc_manager_torch.obs import flight as flight_mod
     from tpu_cc_manager_torch.obs.journal import Journal
     from tpu_cc_manager_torch.utils.metrics import MetricsRegistry
     from tpu_cc_manager_torch.utils.poll import poll_until
 
     directory.mkdir(parents=True, exist_ok=True)
-    kube = FakeKube()
-    nodes = [f"pool-node-{i}" for i in range(POOL_NODES)]
-    selector = "=".join(POOL_LABEL)
-    gpus, smokes, lock = {}, [], threading.Lock()
-    # When each node's desired label first reads on, and when it first reads
-    # mode.state=on with ready.state=true (patch reactors run on the
-    # patching thread, so each stamp is taken as the patch lands).
-    desired_at, ready_at = {}, {}
+    nodes = list(node_labels_of)
+    pool = {"nodes": nodes, "gpus": {}, "registries": {}, "smokes": [], "desired_at": {},
+            "ready_at": {}}
+    lock = threading.Lock()
 
     def on_patch(name, node) -> None:
         labels, now = node_labels(node), time.perf_counter()
         with lock:
             if labels.get(CC_MODE_LABEL) == MODE_ON:
-                desired_at.setdefault(name, now)
+                pool["desired_at"].setdefault(name, now)
             if labels.get(CC_MODE_STATE_LABEL) == MODE_ON and \
                     labels.get(CC_READY_STATE_LABEL) == "true":
-                ready_at.setdefault(name, now)
+                pool["ready_at"].setdefault(name, now)
 
     stop, threads = threading.Event(), []
-    for name in nodes:
-        add_drainable_node(kube, name, AGENT_NS, extra_labels=dict([POOL_LABEL]))
-        gpus[name] = FakeGpuBackend(node_id=name)
+    for name, extra in node_labels_of.items():
+        add_drainable_node(kube, name, AGENT_NS, extra_labels=dict(extra))
+        pool["gpus"][name] = FakeGpuBackend(node_id=name)
+        pool["registries"][name] = MetricsRegistry()
 
         def smoke(workload: str, _node: str = name) -> dict:
             t0 = time.perf_counter()
             res = smoke_runner(workload)
             with lock:
-                smokes.append({"node": _node, "t0": t0, "t1": time.perf_counter(),
-                               "result": res})
+                pool["smokes"].append({"node": _node, "t0": t0, "t1": time.perf_counter(),
+                                       "result": res})
             return res
 
         agent = CCManager(
-            api=kube, backend=NodeBackend(gpus[name]), node_name=name, default_mode=MODE_OFF,
-            operator_namespace=AGENT_NS, evict_components=True, eviction_poll_interval_s=0.02,
-            smoke_workload="matmul", smoke_runner=smoke, allow_fake_quotes=True,
-            metrics=MetricsRegistry(), journal=Journal(trace_file=""), watch_timeout_s=1,
-            reconnect_delay_s=0.0, readiness_file=str(directory / f"ready-{name}"))
+            api=kube, backend=NodeBackend(pool["gpus"][name]), node_name=name,
+            default_mode=MODE_OFF, operator_namespace=AGENT_NS, evict_components=True,
+            eviction_poll_interval_s=0.02, smoke_workload="matmul", smoke_runner=smoke,
+            allow_fake_quotes=True, metrics=pool["registries"][name],
+            journal=Journal(trace_file=""), watch_timeout_s=1, reconnect_delay_s=0.0,
+            readiness_file=str(directory / f"ready-{name}"))
         threads.append(threading.Thread(target=agent.watch_and_apply, args=(stop,),
                                         daemon=True, name=f"agent-{name}"))
     kube.add_patch_reactor(on_patch)
-    for thread in threads:
-        thread.start()
-    try:
+
+    def start() -> bool:
+        for thread in threads:
+            thread.start()
         # The agents settle at off and publish their slice ids, which the
         # orchestrator groups by: one node per group.
-        if not poll_until(lambda: all(
-                node_labels(kube.get_node(n)).get(CC_MODE_STATE_LABEL) == MODE_OFF
-                and node_labels(kube.get_node(n)).get(SLICE_ID_LABEL) for n in nodes), 60, 0.05):
+        return poll_until(lambda: all(
+            node_labels(kube.get_node(n)).get(CC_MODE_STATE_LABEL) == MODE_OFF
+            and node_labels(kube.get_node(n)).get(SLICE_ID_LABEL) for n in nodes), 60, 0.05)
+
+    def stop_agents() -> None:
+        stop.set()
+        for thread in threads:
+            thread.join(timeout=10)
+
+    pool["start"], pool["stop"] = start, stop_agents
+    return pool
+
+
+def rolling_pool(smoke_runner, directory) -> dict:
+    """Phase 17's rollout: ``POOL_NODES`` port agents (``pool_agents``)
+    verify every flip with ``smoke_runner``. The port's
+    ``RollingReconfigurator`` flips the pool to on with
+    ``max_unavailable=1`` under a ``RolloutLease`` and a ``FlightRecorder``;
+    it is killed (``OrchestratorKilled``) at the first window boundary, and
+    a successor takes the lease over, reads the record and resumes. Then one
+    patch goes through the killed orchestrator's ``FencedKube``. Returns the
+    results, timings and observations the phase checks."""
+    from tpu_cc_manager_torch.ccmanager import rollout_state
+    from tpu_cc_manager_torch.ccmanager.rolling import RollingReconfigurator
+    from tpu_cc_manager_torch.faults.plan import OrchestratorKilled
+    from tpu_cc_manager_torch.kubeclient.api import node_labels
+    from tpu_cc_manager_torch.kubeclient.fake import FakeKube
+    from tpu_cc_manager_torch.labels import CC_MODE_LABEL, MODE_OFF, MODE_ON
+    from tpu_cc_manager_torch.obs import flight as flight_mod
+    from tpu_cc_manager_torch.utils.metrics import MetricsRegistry
+
+    kube = FakeKube()
+    nodes = [f"pool-node-{i}" for i in range(POOL_NODES)]
+    selector = "=".join(POOL_LABEL)
+    agents = pool_agents(kube, {name: [POOL_LABEL] for name in nodes}, smoke_runner, directory)
+    gpus, smokes = agents["gpus"], agents["smokes"]
+    desired_at, ready_at = agents["desired_at"], agents["ready_at"]
+    try:
+        if not agents["start"]():
             return {"error": "the pool's agents never settled at off"}
         metrics = MetricsRegistry()
         flight_path = str(directory / "flight.jsonl")
@@ -2269,9 +2334,7 @@ def rolling_pool(smoke_runner, directory) -> dict:
         exposition = metrics.render_prometheus()
         lease_b.release(clear_record=result.ok)
     finally:
-        stop.set()
-        for thread in threads:
-            thread.join(timeout=10)
+        agents["stop"]()
     events, torn = flight_mod.read_events(flight_path)
     return {
         "result": result, "wall_s": wall, "killed_s": killed - t0,
@@ -2346,6 +2409,41 @@ def pool_problems(pool: dict) -> list[str]:
     return problems
 
 
+def node_smokes(tag: str, pool: dict, smoke_k1: int, problems: list) -> dict:
+    """Print each node's desired on -> ready wall against the per-node
+    budget, its verify smoke's wall and share and its K1 launches; append to
+    ``problems`` a node over the budget, a failed smoke and a smoke whose K1
+    launches are not ``smoke_k1``, all on ``sm90``. Returns the smokes'
+    launch counts, summed."""
+    smokes = {s["node"]: s for s in pool["smokes"]}
+    launches = {}
+    for name in pool["nodes"]:
+        node_s = pool["ready_at"].get(name, float("nan")) - pool["desired_at"].get(name, float("nan"))
+        s = smokes.get(name)
+        smoke_s = s["t1"] - s["t0"] if s else float("nan")
+        say(f"{tag}: {name} desired on -> ready {node_s:.3f} s (budget "
+            f"{AGENT_BUDGET_S:g} s per node), smoke {smoke_s:.3f} s, smoke share "
+            f"{smoke_s / node_s:.4f}")
+        if not node_s < AGENT_BUDGET_S:
+            problems.append(f"{name} took {node_s:.3f} s, over the {AGENT_BUDGET_S:g} s budget")
+        if s is None:
+            continue
+        res = s["result"]
+        if not res.get("ok"):
+            problems.append(f"{name}'s verify smoke failed: {json.dumps(res, default=str)[:500]}")
+            continue
+        counts = {"K1/sm90": 0, "K1/simt": 0, **res.get("kernel_launches", {}),
+                  **flat_variants(res.get("kernel_launches_by_variant", {}))}
+        say(f"{tag}: {name} verify smoke ok={res['ok']} devices={res.get('devices')} "
+            f"K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
+        check_devices(f"{tag} verify smoke on {name}", res, 1)
+        if counts["K1/sm90"] != smoke_k1 or counts["K1/simt"] != 0:
+            problems.append(f"{name}'s verify smoke made K1 sm90={counts['K1/sm90']} "
+                            f"simt={counts['K1/simt']}, want {smoke_k1} on sm90")
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    return launches
+
+
 def check_rolling_pool(torch, smi_line: str, smoke_k1: int) -> dict:
     """Phase 17: ``rolling_pool`` with K1's matmul smoke on the card as each
     node's verify smoke. Every requirement of ``pool_problems`` must hold,
@@ -2371,32 +2469,7 @@ def check_rolling_pool(torch, smi_line: str, smoke_k1: int) -> dict:
         f"takeover gap {pool['takeover_gap_s']:.3f} s (lease {POOL_LEASE_S:g} s), generations "
         f"{pool['generations']}; {smi_line}")
     say(f"rolling pool: result {json.dumps(pool['result'].summary())}")
-    smokes = {s["node"]: s for s in pool["smokes"]}
-    launches = {}
-    for name in pool["nodes"]:
-        node_s = pool["ready_at"].get(name, float("nan")) - pool["desired_at"].get(name, float("nan"))
-        s = smokes.get(name)
-        smoke_s = s["t1"] - s["t0"] if s else float("nan")
-        say(f"rolling pool: {name} desired on -> ready {node_s:.3f} s (budget "
-            f"{AGENT_BUDGET_S:g} s per node), smoke {smoke_s:.3f} s, smoke share "
-            f"{smoke_s / node_s:.4f}")
-        if not node_s < AGENT_BUDGET_S:
-            problems.append(f"{name} took {node_s:.3f} s, over the {AGENT_BUDGET_S:g} s budget")
-        if s is None:
-            continue
-        res = s["result"]
-        if not res.get("ok"):
-            problems.append(f"{name}'s verify smoke failed: {json.dumps(res, default=str)[:500]}")
-            continue
-        counts = {"K1/sm90": 0, "K1/simt": 0, **res.get("kernel_launches", {}),
-                  **flat_variants(res.get("kernel_launches_by_variant", {}))}
-        say(f"rolling pool: {name} verify smoke ok={res['ok']} devices={res.get('devices')} "
-            f"K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
-        check_devices(f"rolling pool verify smoke on {name}", res, 1)
-        if counts["K1/sm90"] != smoke_k1 or counts["K1/simt"] != 0:
-            problems.append(f"{name}'s verify smoke made K1 sm90={counts['K1/sm90']} "
-                            f"simt={counts['K1/simt']}, want {smoke_k1} on sm90")
-        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    launches = node_smokes("rolling pool", pool, smoke_k1, problems)
     timeline = pool["timeline"]
     say(f"rolling pool: flight torn lines {pool['torn_lines']}, generations "
         f"{timeline['generations']}, resumes {timeline['resumes']}, node outcomes "
@@ -2404,6 +2477,300 @@ def check_rolling_pool(torch, smi_line: str, smoke_k1: int) -> dict:
         f"refused={pool['fenced']}, tpu_cc_rollout_fenced_writes_total {pool['fenced_writes'][1]}")
     if problems:
         fail("rolling pool: " + "; ".join(problems))
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
+def federated_pool(smoke_runner, directory) -> dict:
+    """Phase 18's rollout: one port agent (``pool_agents``) per region of
+    ``FED_REGIONS``, each node labelled with its region, verifying every
+    flip with ``smoke_runner``. The port's operator CLI flips the pool to on
+    as ``ctl rollout --regions`` does: ``ctl.cmd_rollout`` with the
+    in-process ``FakeKube``, one lease-fenced shard per region under one
+    parent record and a global failure budget. ctl's orchestrator is
+    wrapped so that, in the first run, the ``FED_KILL_REGION`` shard is
+    killed (``OrchestratorKilled``) at ``FED_KILL_POINT``; ``rollout
+    --resume --regions`` then resumes it. Then one patch goes through the
+    killed shard's ``FencedKube``; ``ctl rollout-timeline --stitch`` renders
+    the regional flight files; a ``FleetGateway`` over the agents'
+    registries serves ``/metrics`` and ``/fleetz``; and ``ctl status``
+    lists the pool. Returns the results, timings and observations the phase
+    checks."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from tpu_cc_manager_torch import ctl
+    from tpu_cc_manager_torch.ccmanager import federation, rollout_state
+    from tpu_cc_manager_torch.faults.plan import OrchestratorKilled
+    from tpu_cc_manager_torch.kubeclient.api import node_labels
+    from tpu_cc_manager_torch.kubeclient.fake import FakeKube
+    from tpu_cc_manager_torch.labels import CC_MODE_LABEL, MODE_OFF
+    from tpu_cc_manager_torch.lint import expo
+    from tpu_cc_manager_torch.obs import fleet
+    from tpu_cc_manager_torch.obs import flight as flight_mod
+    from tpu_cc_manager_torch.utils import metrics as metrics_mod
+
+    kube = FakeKube()
+    region_of = {f"fed-node-{region}": region for region in FED_REGIONS}
+    nodes = list(region_of)
+    selector = "=".join(FED_LABEL)
+    agents = pool_agents(kube, {name: [FED_LABEL, (federation.REGION_LABEL, region)]
+                                for name, region in region_of.items()}, smoke_runner, directory)
+    shard_region = {federation.regional_selector(selector, r): r for r in FED_REGIONS}
+    flight_file = str(directory / "flight.jsonl")
+    flight_files = [f"{flight_file}.{region}" for region in FED_REGIONS]
+    common = ["--selector", selector, "--node-timeout", str(POOL_NODE_TIMEOUT_S),
+              "--lease-namespace", AGENT_NS, "--lease-duration", str(POOL_LEASE_S),
+              "--flight-file", flight_file]
+    shards = []  # every orchestrator shard ctl built, in order
+
+    class Shard(ctl.RollingReconfigurator):
+        """ctl's orchestrator, noted as ctl builds each shard; in the first
+        run the ``FED_KILL_REGION`` shard carries a crash hook."""
+        run = 1
+
+        def __init__(self, api, shard_selector, **kwargs):
+            region = shard_region[shard_selector]
+            if Shard.run == 1 and region == FED_KILL_REGION:
+                def killer(point: str) -> None:
+                    if point == FED_KILL_POINT:
+                        raise OrchestratorKilled(point, 0)
+
+                kwargs["crash_hook"] = killer
+            super().__init__(api, shard_selector, **kwargs)
+            shards.append({"run": Shard.run, "region": region, "roller": self,
+                           "built": time.perf_counter(),
+                           "resume_record": kwargs.get("resume_record")})
+
+    def cli(command, argv: list) -> tuple[int, str]:
+        """One ``ctl`` command on the pool's ``FakeKube``, its standard
+        output kept."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = command(kube, ctl.build_parser().parse_args(argv))
+        return rc, out.getvalue()
+
+    def fetch(url: str) -> str:
+        with urllib.request.urlopen(url, timeout=30) as response:
+            return response.read().decode()
+
+    try:
+        if not agents["start"]():
+            return {"error": "the federated pool's agents never settled at off"}
+        original, ctl.RollingReconfigurator = ctl.RollingReconfigurator, Shard
+        try:
+            t0 = time.perf_counter()
+            try:
+                cli(ctl.cmd_rollout, ["rollout", *common, "--mode", "on", "--regions",
+                                      ",".join(FED_REGIONS), "--failure-budget", str(FED_BUDGET)])
+                return {"error": f"the {FED_KILL_REGION} shard was not killed at {FED_KILL_POINT}"}
+            except OrchestratorKilled:
+                killed = time.perf_counter()
+            converged_before_kill = sorted(agents["ready_at"])
+            Shard.run = 2
+            rc, out = cli(ctl.cmd_rollout, ["rollout", *common, "--resume", "--regions",
+                                            ",".join(FED_REGIONS)])
+            wall = time.perf_counter() - t0
+        finally:
+            ctl.RollingReconfigurator = original
+        summary = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+        parent = federation.ParentStore(kube, namespace=AGENT_NS).load()
+        first = next(s for s in shards if s["run"] == 1 and s["region"] == FED_KILL_REGION)
+        resumed = next(s for s in shards if s["run"] == 2 and s["region"] == FED_KILL_REGION)
+        record = resumed["resume_record"]
+        # The killed shard's fence: its writes are refused and counted.
+        fenced_before = metrics_mod.REGISTRY.rollout_totals()["fenced_writes"]
+        try:
+            first["roller"].api.patch_node_labels(nodes[0], {CC_MODE_LABEL: MODE_OFF})
+            fenced = False
+        except rollout_state.RolloutFenced:
+            fenced = True
+        fenced_after = metrics_mod.REGISTRY.rollout_totals()["fenced_writes"]
+        timeline_rc, timeline_text = cli(ctl.cmd_rollout_timeline,
+                                         ["rollout-timeline", "--stitch", *flight_files])
+        status_rc, status_text = cli(ctl.cmd_status, ["status", "--selector", selector,
+                                                      "--lease-namespace", AGENT_NS])
+        gateway = fleet.FleetGateway({name: fleet.local_target(agents["registries"][name])
+                                      for name in nodes})
+        swept = time.perf_counter()
+        gateway.scrape_once()
+        sweep_ms = (time.perf_counter() - swept) * 1e3
+        node_texts = {name: agents["registries"][name].render_prometheus() for name in nodes}
+        server = gateway.serve(0)
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            merged, fleetz = fetch(f"{base}/metrics"), json.loads(fetch(f"{base}/fleetz"))
+        finally:
+            server.shutdown()
+            server.server_close()
+    finally:
+        agents["stop"]()
+    events, torn = flight_mod.stitch_files(flight_files)
+    return {
+        "rc": rc, "summary": summary, "wall_s": wall, "killed_s": killed - t0,
+        "takeover_gap_s": resumed["built"] - killed,
+        "converged_before_kill": converged_before_kill,
+        "resume_digest": (record.federation or {}).get("digest") if record is not None else None,
+        "parent": json.loads(parent.to_json()) if parent is not None else None,
+        "nodes": nodes, "region_of": region_of, "desired_at": agents["desired_at"],
+        "ready_at": agents["ready_at"], "smokes": agents["smokes"],
+        "labels": {n: node_labels(kube.get_node(n)) for n in nodes},
+        "committed": {n: (set(g.committed_cc.values()), set(g.committed_ppcie.values()))
+                      for n, g in agents["gpus"].items()},
+        "fenced": fenced, "fenced_writes": (fenced_before, fenced_after),
+        "timeline_rc": timeline_rc, "timeline_text": timeline_text, "torn_lines": torn,
+        "timeline": flight_mod.reconstruct(events), "status_rc": status_rc,
+        "status_text": status_text, "node_texts": node_texts, "merged": merged,
+        "expo_problems": expo.lint(merged), "fleetz": fleetz, "sweep_ms": sweep_ms,
+    }
+
+
+def phase_seconds_mismatches(node_texts: dict, merged: str) -> list[str]:
+    """The ``tpu_cc_phase_seconds`` ``_count`` and ``_sum`` series of the
+    merged exposition that differ from the sum of the nodes' (compared as
+    the exposition writes them), and the series of either side that the
+    other lacks. Empty when every one is exact."""
+    from tpu_cc_manager_torch.obs import fleet
+
+    def series(text: str) -> dict:
+        return {(name, tuple(sorted(labels))): value
+                for name, labels, value in fleet.parse_exposition(text).samples
+                if name in ("tpu_cc_phase_seconds_count", "tpu_cc_phase_seconds_sum")}
+
+    want: dict = {}
+    for text in node_texts.values():
+        for key, value in series(text).items():
+            want[key] = want.get(key, 0.0) + value
+    got = series(merged)
+    if not want:
+        return ["the nodes export no tpu_cc_phase_seconds series"]
+    return [f"{name}{dict(labels)}: merged {got.get((name, labels))}, nodes sum "
+            f"{want.get((name, labels))}"
+            for name, labels in sorted(set(want) | set(got))
+            if (name, labels) not in got or (name, labels) not in want
+            or fleet._format_value(got[(name, labels)]) !=
+            fleet._format_value(want[(name, labels)])]
+
+
+def federated_problems(fed: dict) -> list[str]:
+    """What phase 18 requires of a ``federated_pool`` run, as a list of the
+    requirements that failed (empty when every one held)."""
+    from tpu_cc_manager_torch.labels import (
+        CC_MODE_STATE_LABEL,
+        CC_READY_STATE_LABEL,
+        MODE_ON,
+    )
+    from tpu_cc_manager_torch.obs.flight import EVENT_NODE_CONVERGED
+
+    if "error" in fed:
+        return [fed["error"]]
+    problems = []
+    nodes, summary, parent = fed["nodes"], fed["summary"], fed["parent"] or {}
+    killed_node = next(n for n, r in fed["region_of"].items() if r == FED_KILL_REGION)
+    if fed["rc"] != 0 or not summary.get("ok") or summary.get("parent_status") != "complete":
+        problems.append(f"the resumed federated rollout failed: rc {fed['rc']} {summary}")
+    if not (summary.get("regions") or {}).get(FED_KILL_REGION, {}).get("resumed"):
+        problems.append(f"the {FED_KILL_REGION} shard did not resume its record: {summary}")
+    if fed["resume_digest"] is None or fed["resume_digest"] != parent.get("digest"):
+        problems.append(f"the resumed shard's record is not the parent's: digest "
+                        f"{fed['resume_digest']}, parent {parent.get('digest')}")
+    if fed["converged_before_kill"] != sorted(set(nodes) - {killed_node}):
+        problems.append(f"the kill did not land before {killed_node} was touched: converged "
+                        f"{fed['converged_before_kill']}")
+    regions = parent.get("regions") or {}
+    if sorted(regions) != sorted(FED_REGIONS) or any(
+            (r.get("status"), r.get("done"), r.get("total")) != ("complete", 1, 1)
+            for r in regions.values()):
+        problems.append(f"the parent record does not count each region's node once: {regions}")
+    if parent.get("budget_spend") != [] or parent.get("failure_budget") != FED_BUDGET:
+        problems.append(f"the parent record charged the budget: spend "
+                        f"{parent.get('budget_spend')} of {parent.get('failure_budget')}")
+    for name in nodes:
+        modes, ppcie = fed["committed"][name]
+        labels = fed["labels"][name]
+        if modes != {MODE_ON} or ppcie != {"off"}:
+            problems.append(f"{name}: committed CC {sorted(modes)}, PPCIe {sorted(ppcie)}")
+        if labels.get(CC_MODE_STATE_LABEL) != MODE_ON or \
+                labels.get(CC_READY_STATE_LABEL) != "true":
+            problems.append(f"{name}: labels end at {labels.get(CC_MODE_STATE_LABEL)}, "
+                            f"ready {labels.get(CC_READY_STATE_LABEL)}")
+    if sorted(s["node"] for s in fed["smokes"]) != nodes:
+        problems.append(f"smokes ran on {[s['node'] for s in fed['smokes']]}, want each node once")
+    if not fed["fenced"] or fed["fenced_writes"][1] != fed["fenced_writes"][0] + 1:
+        problems.append(f"the killed shard's patch was not refused and counted once: "
+                        f"fenced={fed['fenced']} counts {fed['fenced_writes']}")
+    if fed["timeline_rc"] != 0 or not fed["timeline_text"].startswith("flight recorder:"):
+        problems.append(f"ctl rollout-timeline --stitch failed: rc {fed['timeline_rc']}")
+    if fed["torn_lines"]:
+        problems.append(f"{fed['torn_lines']} torn flight lines")
+    timeline = fed["timeline"]
+    outcomes = {n: e["outcome"] for n, e in timeline["nodes"].items() if not e["skipped"]}
+    if outcomes != {n: EVENT_NODE_CONVERGED for n in nodes} or \
+            timeline["duplicate_node_events"]:
+        problems.append(f"the stitched timeline does not show each node converged once: "
+                        f"{timeline['nodes']} duplicates {timeline['duplicate_node_events']}")
+    mismatched = phase_seconds_mismatches(fed["node_texts"], fed["merged"])
+    if mismatched:
+        problems.append("the gateway's tpu_cc_phase_seconds are not the nodes' sums: "
+                        + "; ".join(mismatched[:4]))
+    if fed["expo_problems"]:
+        problems.append(f"the merged exposition fails lint/expo.py: {fed['expo_problems'][:4]}")
+    fleet_nodes = fed["fleetz"].get("nodes") or {}
+    if sorted(fleet_nodes) != nodes or any(e.get("stale") for e in fleet_nodes.values()):
+        problems.append(f"/fleetz does not list both nodes fresh: {fleet_nodes}")
+    rows = {line.split()[0]: line.split() for line in fed["status_text"].splitlines()
+            if line.split() and line.split()[0] in nodes}
+    if fed["status_rc"] != 0 or sorted(rows) != nodes or any(
+            row[2:4] != [MODE_ON, MODE_ON] for row in rows.values()):
+        problems.append(f"ctl status does not list both nodes on: {fed['status_text']!r}")
+    return problems
+
+
+def check_federated_pool(torch, smi_line: str, smoke_k1: int) -> dict:
+    """Phase 18: ``federated_pool`` with K1's matmul smoke on the card as
+    each node's verify smoke. Every requirement of ``federated_problems``
+    must hold, each node must be ready within the per-node budget, and each
+    smoke must make ``smoke_k1`` K1 launches, all on ``sm90``. Returns the
+    smokes' launch counts."""
+    import pathlib
+    import shutil
+
+    from tpu_cc_manager_torch.smoke.runner import run_workload_subprocess
+
+    def smoke(workload: str) -> dict:
+        return run_workload_subprocess(workload, timeout_s=300, extra_args=["--kernel", "cuda"])
+
+    t0 = time.perf_counter()
+    directory = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_federation"
+    shutil.rmtree(directory, ignore_errors=True)
+    fed = federated_pool(smoke, directory)
+    problems = federated_problems(fed)
+    if "error" in fed:
+        fail(f"federated flip: {fed['error']}")
+    say(f"federated flip: regions {','.join(FED_REGIONS)}, one fake HGX node each, flipped to "
+        f"on through ctl.cmd_rollout, failure budget {FED_BUDGET}: pool wall "
+        f"{fed['wall_s']:.3f} s; {FED_KILL_REGION} shard killed at {FED_KILL_POINT} "
+        f"{fed['killed_s']:.3f} s in, after {fed['converged_before_kill']}; takeover gap "
+        f"{fed['takeover_gap_s']:.3f} s (the killed command's exit to the resumed shard); "
+        f"{smi_line}")
+    say(f"federated flip: ctl rollout --resume: {json.dumps(fed['summary'])}")
+    say(f"federated flip: parent record {json.dumps(fed['parent'])}")
+    launches = node_smokes("federated flip", fed, smoke_k1, problems)
+    timeline = fed["timeline"]
+    say(f"federated flip: stitched flight torn lines {fed['torn_lines']}, generations "
+        f"{timeline['generations']}, resumes {timeline['resumes']}, node outcomes "
+        f"{json.dumps({n: e['outcome'] for n, e in timeline['nodes'].items()})}; fenced patch "
+        f"refused={fed['fenced']}, tpu_cc_rollout_fenced_writes_total {fed['fenced_writes']}")
+    say(f"federated flip: fleet gateway sweep {fed['sweep_ms']:.3f} ms over "
+        f"{len(fed['nodes'])} agents; /fleetz fleet {json.dumps(fed['fleetz'].get('fleet'))}; "
+        f"merged exposition {len(fed['merged'])} bytes, lint/expo.py problems "
+        f"{len(fed['expo_problems'])}")
+    for line in fed["status_text"].splitlines():
+        say(f"federated flip: ctl status: {line}")
+    say(f"federated flip: phase wall {time.perf_counter() - t0:.3f} s")
+    if problems:
+        fail("federated flip: " + "; ".join(problems))
     shutil.rmtree(directory, ignore_errors=True)
     return launches
 
@@ -2595,11 +2962,15 @@ def main(argv: list[str] | None = None) -> int:
     # --- 16. the port's agent on the card ------------------------------------------
     paths["agent verify smoke"] = check_agent(torch, smi_line)
 
-    # --- 17. a rolling flip of a pool of four nodes, killed and resumed ------------
+    # --- 17. a rolling flip of a pool of two nodes, killed and resumed -------------
     paths["rolling pool verify smoke"] = check_rolling_pool(
         torch, smi_line, paths["matmul smoke"]["K1"])
 
-    # --- 18. kernel summary -----------------------------------------------------
+    # --- 18. a federated flip of two regions through ctl, a shard killed -----------
+    paths["federated flip verify smoke"] = check_federated_pool(
+        torch, smi_line, paths["matmul smoke"]["K1"])
+
+    # --- 19. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -2625,7 +2996,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 19. last line ------------------------------------------------------------
+    # --- 20. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -6,8 +6,8 @@ outputs: label constants, retry backoff schedules, the metrics exposition
 byte for byte, the intent journal's file bytes (each package replays the
 other's file), and ``RestKube`` over HTTP against ``hack/mock_apiserver.py``.
 Every copied line of code equals the JAX file's but the manager's device
-seam (``ccmanager/node.py``) and the serving harness's fake nodes; a few
-lines of prose are reworded."""
+seam (``ccmanager/node.py``), the serving harness's fake nodes and the
+lint's baseline file and env table; a few lines of prose are reworded."""
 
 import difflib
 import importlib
@@ -39,6 +39,9 @@ MODULES = [
     "obs.slo", "obs.flight", "obs.failslow", "faults", "faults.plan", "faults.kube",
     "drain.sim", "ccmanager.rollout_state", "ccmanager.rolling", "serve", "serve.server",
     "serve.driver", "serve.sweep", "serve.harness",
+    "obs.fleet", "ccmanager.federation", "ctl", "lint", "lint.base", "lint.baseline",
+    "lint.flow", "lint.crash", "lint.crashpoints", "lint.expo", "lint.fenced", "lint.journal",
+    "lint.locks", "lint.surface", "lint.waits", "lint.__main__",
 ]
 # The contract names of the device seam: the port's modules import
 # ``ccmanager.node``'s views and ``GpuError`` in their place.
@@ -46,6 +49,9 @@ RENAMES = {"TpuCcBackend": "NodeBackend", "SliceTopology": "SliceView",
            "TpuChip": "ChipView", "TpuError": "GpuError", "FakeTpuBackend": "FakeGpuBackend"}
 # Names the CLI takes from its device layer: present, typed by that layer.
 DEVICE_LAYER = {"ccmanager.cli": {"load_backend"}}
+# Constants the port sets to its own value: the lint's baseline is a file
+# of the port's package.
+OWN_VALUES = {"lint.baseline": {"BASELINE_FILE"}}
 
 
 def normalise(text: str) -> str:
@@ -87,7 +93,11 @@ def surface(obj) -> dict:
         return {"class": signature(obj), "methods": methods}
     if callable(obj):
         return {"callable": signature(obj)}
-    if isinstance(obj, (str, int, float, bool, tuple, frozenset, type(None))):
+    if isinstance(obj, str):  # paths of the package, as the seam diff reads them
+        return {"value": normalise(obj)}
+    if isinstance(obj, tuple):
+        return {"value": normalise(repr(obj))}
+    if isinstance(obj, (int, float, bool, frozenset, type(None))):
         return {"value": obj}
     if isinstance(obj, (dict, list, set)):
         return {"value": normalise(repr(obj))}
@@ -101,6 +111,9 @@ def test_every_public_name_keeps_its_signature(name):
         port_attr = RENAMES.get(attr, attr)
         assert hasattr(port_mod, port_attr), f"{name}.{port_attr} missing"
         if attr in RENAMES or attr in DEVICE_LAYER.get(name, ()):
+            continue
+        if attr in OWN_VALUES.get(name, ()):
+            assert type(getattr(port_mod, attr)) is type(getattr(jax_mod, attr)), attr
             continue
         assert surface(getattr(port_mod, port_attr)) == surface(getattr(jax_mod, attr)), attr
 
@@ -292,12 +305,34 @@ SEAM = {
          "            backend = TpuCcBackend(FakeTpuBackend(",
          '                node_id=f"serve-slice-{i}",',
          "            ))"]),
+    # The port's lint: its baseline is a file of the port's package, and
+    # an env name may stand in the port's env table (README.md) as well as
+    # in docs/operations.md; neither JAX file is the port's to edit.
+    "lint/baseline.py": (
+        ['BASELINE_FILE = ".cclint-baseline.json"'],
+        ['BASELINE_FILE = "tpu_cc_manager/lint/cclint-baseline.json"']),
+    "lint/surface.py": (
+        [],
+        ['PORT_ENV_PATH = "README.md"',
+         'PORT_ENV_HEADING = "### Environment of the port"',
+         'def _port_env_table(text: str | None) -> str:',
+         '    if text is None or PORT_ENV_HEADING not in text:',
+         '        return ""',
+         '    section = re.split(r"\\n#{1,3} ", text.split(PORT_ENV_HEADING, 1)[1])[0]',
+         '    return "\\n".join(',
+         '        line for line in section.splitlines() if line.startswith("| `CC_")',
+         '    )',
+         '        docs += _port_env_table(ctx.read_text(PORT_ENV_PATH))']),
 }
 # Lines of prose (docstrings, comments) the copies reword: a path on the
 # author's machine and the numbers of the changes that added a feature,
 # which a copy does not carry.
 PROSE = {"ccmanager/remediation.py": 2, "ccmanager/multislice.py": 1,
-         "ccmanager/rollout_state.py": 3, "ccmanager/rolling.py": 2, "serve/sweep.py": 1}
+         "ccmanager/rollout_state.py": 3, "ccmanager/rolling.py": 2, "serve/sweep.py": 1,
+         "obs/fleet.py": 1, "ccmanager/federation.py": 2, "lint/__init__.py": 2,
+         "lint/baseline.py": 1, "lint/fenced.py": 1, "lint/journal.py": 1, "lint/waits.py": 1,
+         # The port's env table, described in the docstring and its reader's.
+         "lint/surface.py": (1, 4)}
 COPIES = ["ccmanager/watchdog.py", "ccmanager/remediation.py", "ccmanager/slicecoord.py",
           "ccmanager/multislice.py", "ccmanager/intent_journal.py", "ccmanager/informer.py",
           "ccmanager/metrics_server.py", "version.py", "labels.py", "utils/locks.py",
@@ -308,7 +343,10 @@ COPIES = ["ccmanager/watchdog.py", "ccmanager/remediation.py", "ccmanager/slicec
           "obs/flight.py", "obs/failslow.py", "faults/__init__.py", "faults/plan.py",
           "faults/kube.py", "drain/sim.py", "ccmanager/rollout_state.py",
           "ccmanager/rolling.py", "serve/__init__.py", "serve/server.py", "serve/driver.py",
-          "serve/sweep.py"]
+          "serve/sweep.py", "obs/fleet.py", "ccmanager/federation.py", "ctl.py",
+          "lint/__init__.py", "lint/__main__.py", "lint/base.py", "lint/baseline.py",
+          "lint/crash.py", "lint/crashpoints.py", "lint/expo.py", "lint/fenced.py",
+          "lint/flow.py", "lint/journal.py", "lint/locks.py", "lint/surface.py", "lint/waits.py"]
 
 
 def prose_lines(text: str) -> set[int]:
@@ -343,4 +381,5 @@ def test_the_copies_differ_from_the_jax_files_only_at_the_seam(rel):
                 elif lines[i].strip():
                     code[side].append(lines[i])
     assert code == SEAM.get(rel, ([], []))
-    assert prose == [PROSE.get(rel, 0)] * 2
+    want = PROSE.get(rel, 0)
+    assert prose == (list(want) if isinstance(want, tuple) else [want] * 2)

@@ -2,7 +2,9 @@
 
 The JAX suites of the fleet rollout (``obs/slo``, ``obs/flight``,
 ``obs/failslow``, ``faults``, ``drain/sim``, ``ccmanager/rollout_state``,
-``ccmanager/rolling`` and ``serve``) run on the port through
+``ccmanager/rolling`` and ``serve``) and of the operator's modules
+(``ccmanager/federation``, ``obs/fleet``, ``ctl``, ``lint``) run on the
+port through
 :func:`port_suite`: each ``tests/test_torch_<suite>.py`` executes the JAX
 file ``tests/test_<suite>.py`` itself, with every import from
 ``tpu_cc_manager`` read from ``tpu_cc_manager_torch``, so the port is held
@@ -31,7 +33,13 @@ from tpu_cc_manager_torch.kubeclient.fake import FakeKube
 TESTS = pathlib.Path(__file__).resolve().parent
 
 #: Imports a JAX suite makes that the port answers with a name of its own.
-SEAMS = {("tpu_cc_manager.tpudev.fake", "FakeTpuBackend"): (__name__, "FakeNode")}
+SEAMS = {("tpu_cc_manager.tpudev.fake", "FakeTpuBackend"): (__name__, "FakeNode"),
+         ("tpu_cc_manager.tpudev.contract", "SliceTopology"):
+             ("tpu_cc_manager_torch.ccmanager.node", "SliceView")}
+#: A JAX package path and its port's, for suites that name files of the
+#: package in strings (``paths=True``); the longest prefix first.
+PATHS = (("tpu_cc_manager/tpudev/", "tpu_cc_manager_torch/gpudev/"),
+         ("tpu_cc_manager/", "tpu_cc_manager_torch/"))
 
 
 class FakeNode(NodeBackend):
@@ -83,24 +91,46 @@ def _port_import(node: ast.ImportFrom) -> list[ast.ImportFrom]:
     return [ast.copy_location(n, node) for n in out + seams]
 
 
+def port_path(text: str) -> str:
+    """A path of the JAX package as the port's (other strings as they are)."""
+    for jax_prefix, port_prefix in PATHS:
+        if text.startswith(jax_prefix):
+            return port_prefix + text[len(jax_prefix):]
+    return text
+
+
 class _ToPort(ast.NodeTransformer):
+    def __init__(self, paths: bool, modules: dict[str, str]) -> None:
+        self.paths, self.modules = paths, modules
+
     def visit_ImportFrom(self, node):
         return _port_import(node)
 
     def visit_Import(self, node):
         for alias in node.names:
-            if alias.name.split(".")[0] == "tpu_cc_manager":
+            if alias.name in self.modules:
+                alias.asname, alias.name = alias.asname or alias.name, self.modules[alias.name]
+            elif alias.name.split(".")[0] == "tpu_cc_manager":
                 raise ValueError(f"line {node.lineno}: import {alias.name} has no port form")
         return node
 
+    def visit_Constant(self, node):
+        if self.paths and isinstance(node.value, str):
+            node.value = port_path(node.value)
+        return node
 
-def port_suite(namespace: dict, suite: str, drop: tuple[str, ...] = ()) -> None:
+
+def port_suite(namespace: dict, suite: str, drop: tuple[str, ...] = (), paths: bool = False,
+               modules: dict[str, str] | None = None) -> None:
     """Run ``tests/<suite>.py`` into ``namespace`` (the calling test
     module's globals) with its imports read from the port. ``drop`` names
     top-level definitions and imported names to leave out; each must
     exist, so a renamed JAX case fails here instead of running nowhere.
-    Assertions are rewritten as pytest rewrites a test module's, and
-    tracebacks point at the JAX file's lines."""
+    ``paths`` reads every string that starts with a path of the JAX
+    package as the port's path (:data:`PATHS`); ``modules`` binds a plain
+    ``import <name>`` to a module of the port instead. Assertions are
+    rewritten as pytest rewrites a test module's, and tracebacks point at
+    the JAX file's lines."""
     path = TESTS / f"{suite}.py"
     source = path.read_bytes()
     tree = ast.parse(source, filename=str(path))
@@ -121,7 +151,7 @@ def port_suite(namespace: dict, suite: str, drop: tuple[str, ...] = ()) -> None:
     if missing:
         raise ValueError(f"{suite} has no top-level {sorted(missing)}")
     tree.body = body
-    tree = ast.fix_missing_locations(_ToPort().visit(tree))
+    tree = ast.fix_missing_locations(_ToPort(paths, modules or {}).visit(tree))
     rewrite_asserts(tree, source, str(path))
     exec(compile(tree, str(path), "exec"), namespace)
 
@@ -144,6 +174,26 @@ def test_port_suite_reads_the_port():
     assert ns["FakeTpuBackend"] is FakeNode
     with pytest.raises(ValueError, match="no top-level"):
         port_suite({"__name__": "port_suite_probe"}, "test_slo", drop=("test_gone",))
+
+
+def test_port_suite_reads_paths_and_binds_modules():
+    """``paths`` maps the JAX package's path literals to the port's (the
+    device layer's too) and leaves other strings alone; ``modules`` binds a
+    plain import to a module of the port."""
+    assert port_path("tpu_cc_manager/ctl.py") == "tpu_cc_manager_torch/ctl.py"
+    assert port_path("tpu_cc_manager/tpudev/impl.py") == "tpu_cc_manager_torch/gpudev/impl.py"
+    for text in ("tests/test_x.py", "cclint (tpu_cc_manager/lint/)", "tpu_cc_manager.ctl"):
+        assert port_path(text) == text
+    ns = {"__name__": "port_suite_probe", "__file__": __file__}
+    port_suite(ns, "test_cclint", paths=True)
+    assert ns["surface"].__name__ == "tpu_cc_manager_torch.lint.surface"
+    ns = {"__name__": "port_suite_probe", "__file__": __file__}
+    port_suite(ns, "test_metrics_lint",
+               modules={"check_metrics_lint": "tpu_cc_manager_torch.lint.expo"})
+    assert ns["check_metrics_lint"].__name__ == "tpu_cc_manager_torch.lint.expo"
+    ns = {"__name__": "port_suite_probe", "__file__": __file__}
+    port_suite(ns, "test_metrics_lint")  # unbound: the JAX shim, as the JAX suite runs it
+    assert ns["check_metrics_lint"].lint.__module__ == "tpu_cc_manager.lint.expo"
 
 
 def test_the_fake_node_passes_the_fakes_controls_through():

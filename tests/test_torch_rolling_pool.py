@@ -1,6 +1,7 @@
-"""``chip_smoke.py`` phase 17 on the CPU: the rolling flip of a pool of four
-fake HGX H100 nodes, killed at its first window boundary and resumed by a
-fenced successor, with a stand-in for K1's matmul smoke child.
+"""``chip_smoke.py`` phase 17 on the CPU: the rolling flip of a pool of
+``chip_smoke.POOL_NODES`` fake HGX H100 nodes, killed at its first window
+boundary and resumed by a fenced successor, with a stand-in for K1's matmul
+smoke child.
 
 The phase's checks (``chip_smoke.pool_problems``) must all hold, and they
 must catch what they exist for: a pool flipped two nodes at a time, a node
@@ -43,7 +44,8 @@ def test_the_pool_flips_once_per_node_across_the_takeover(pool):
     assert [s["node"] for s in sorted(pool["smokes"], key=lambda s: s["t0"])] == \
         [f"pool-node-{i}" for i in range(chip_smoke.POOL_NODES)]
     summary = pool["result"].summary()
-    assert summary["resumed"] and summary["skipped_groups"] == 1 and summary["nodes"] == 4
+    assert summary["resumed"] and summary["skipped_groups"] == 1
+    assert summary["nodes"] == chip_smoke.POOL_NODES
 
 
 def broken(pool, how):

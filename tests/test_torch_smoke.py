@@ -306,15 +306,17 @@ def test_poll_until_deadline():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port imports without JAX, the JAX package or
-    nvcc: nothing is built or loaded at import. The agent's and the fleet
-    rollout's modules (``ccmanager``, ``serve``, ``faults`` and what they
-    import) import no torch, and importing ``__main__`` does not start the
-    agent."""
+    nvcc: nothing is built or loaded at import. The agent's, the fleet
+    rollout's and the operator's modules (``ccmanager``, ``serve``,
+    ``faults``, ``ctl``, ``obs/fleet``, ``lint`` and what they import)
+    import no torch, and importing ``__main__`` does not start the agent."""
     code = """
 import importlib, pkgutil, sys
 import tpu_cc_manager_torch.ccmanager.cli, tpu_cc_manager_torch.ccmanager.localrig
 import tpu_cc_manager_torch.ccmanager.rolling, tpu_cc_manager_torch.serve
 import tpu_cc_manager_torch.faults, tpu_cc_manager_torch.drain.sim
+import tpu_cc_manager_torch.ctl, tpu_cc_manager_torch.ccmanager.federation
+import tpu_cc_manager_torch.obs.fleet, tpu_cc_manager_torch.lint.__main__
 assert not [m for m in sys.modules if m == "torch" or m.startswith("torch.")]
 import tpu_cc_manager_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_cc_manager_torch.__path__, "tpu_cc_manager_torch.")]
@@ -333,5 +335,5 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 83
+    assert int(proc.stdout.strip()) >= 99
     assert "node-name" not in proc.stderr and "tpu-cc-manager" not in proc.stderr
