@@ -32,9 +32,9 @@ counts at 0 just before it and read just after:
    beside SDPA's backward alone, each also by device time from
    ``torch.profiler``;
 5. the matmul smoke through the agent's runner with ``--kernel torch`` and
-   ``--kernel cuda`` (the latter must show K1 launches, all on "sm90"); the
-   torch path must report ``devices`` = ``torch.cuda.device_count()`` and
-   each card's oracles, the cuda path one card;
+   ``--kernel cuda`` (the latter must show K1 launches, all on "sm90");
+   each must report ``devices`` = ``torch.cuda.device_count()`` and each
+   card's oracles;
 6. the Llama-3-8B inference smoke at full width (32 layers, dim 4096, GQA
    32/8, vocab 128256, bf16, batch 4): all three oracles and K2 launches on
    every visible card (``devices`` and each card's oracles printed); the
@@ -195,13 +195,34 @@ counts at 0 just before it and read just after:
    list both nodes on. The pool wall, each node's desired -> ready wall
    against the 90 s budget and its smoke share, the takeover gap, the
    gateway's sweep and the phase's wall are printed;
-19. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+19. the agent as its DaemonSet starts it (``tpu_cc_manager_torch/deploy/``,
+   read with ``deploy``'s line readers, no YAML parser): (a) the image's
+   build step, the Dockerfile's ``python -m tpu_cc_manager_torch.ops._build
+   --dir DIR`` against a copy of the package laid out as the image lays it
+   out under ``build/chip_smoke_image/``, with nvcc's seconds per library,
+   then ``DIR`` made read-only (0555); (b) ``python -m tpu_cc_manager_torch``
+   as the container starts it (the image's entrypoint and env, the
+   manifest's env, every hostPath under that directory,
+   ``TPU_CC_CACHE_DIR`` an empty writable directory there) against
+   ``hack/mock_apiserver.py``, only ``GPU_CC_BACKEND=fake`` and the metrics
+   port (a free one) changed: the liveness probe's ``/healthz`` answers, one
+   flip to on must be ready within the 90 s budget with one verify smoke,
+   the smoke's default kernel, K1, on every card with phase 5's K1 count,
+   all ``sm90``, loaded from the read-only directory (no library written
+   anywhere else, the directory unchanged), the fake's lines in the agent's
+   log must show the CC ready state set once after the attestation, and
+   SIGTERM exit 0;
+   (c) the manifest's ``h100`` backend over phase 15's stand-ins, the agent
+   on a thread: the flip to on must fail closed at the attestation, the
+   node labelled failed with its reason, the agent alive, NVML's ready
+   state and CC state unchanged and no set call (the setter is refused);
+20. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
    K3 and K4 are checked in phases 3-4 but run on no path; the ResNet and
    ring paths run none of K1-K4: the ResNet's convolutions are cuDNN's, as
    the JAX package's are XLA's, and the ring's blocks are plain PyTorch, as
    the JAX ring's are XLA einsums), then the ``nvidia-smi`` line;
-20. last line ``{"ok": true, "device": {...}}``.
+21. last line ``{"ok": true, "device": {...}}``.
 
 Before phases 12 and 13, which start processes on this card, the script
 prints what its own process still holds there.
@@ -1917,7 +1938,7 @@ def check_device_layer(torch, smi_line: str) -> dict:
                 f"bdf={[c['bdf'] for c in res['per_device']]} K1 sm90="
                 f"{verify_launches['K1/sm90']} simt={verify_launches['K1/simt']}; child wall "
                 f"{wall:.2f} s")
-            check_devices("device layer verify smoke", res, 1)
+            check_devices("device layer verify smoke", res, torch.cuda.device_count())
             if res["per_device"][0]["bdf"] not in by_bdf:
                 fail(f"the verify smoke's card {res['per_device'][0]['bdf']} is not one of "
                      f"{sorted(by_bdf)}")
@@ -2110,7 +2131,7 @@ def check_agent(torch, smi_line: str) -> dict:
         counts = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
         say(f"agent: verify smoke after {run}: ok={res['ok']} devices={res['devices']} "
             f"K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
-        check_devices(f"agent verify smoke after {run}", res, 1)
+        check_devices(f"agent verify smoke after {run}", res, torch.cuda.device_count())
         if counts["K1/sm90"] <= 0 or counts["K1/simt"] != 0:
             fail("the agent's verify smoke did not launch K1, or not all on its sm90 kernel")
         launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
@@ -2436,7 +2457,8 @@ def node_smokes(tag: str, pool: dict, smoke_k1: int, problems: list) -> dict:
                   **flat_variants(res.get("kernel_launches_by_variant", {}))}
         say(f"{tag}: {name} verify smoke ok={res['ok']} devices={res.get('devices')} "
             f"K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
-        check_devices(f"{tag} verify smoke on {name}", res, 1)
+        # Every card the smoke child saw.
+        check_devices(f"{tag} verify smoke on {name}", res, res.get("visible_devices", 1))
         if counts["K1/sm90"] != smoke_k1 or counts["K1/simt"] != 0:
             problems.append(f"{name}'s verify smoke made K1 sm90={counts['K1/sm90']} "
                             f"simt={counts['K1/simt']}, want {smoke_k1} on sm90")
@@ -2775,6 +2797,367 @@ def check_federated_pool(torch, smi_line: str, smoke_k1: int) -> dict:
     return launches
 
 
+
+def smoke_results_in(log: str) -> list[dict]:
+    """The verify smokes' results an agent logged (``smoke workload ...
+    passed: {...}`` or ``warmup smoke ... passed: {...}``), from its text
+    or JSON log lines."""
+    import ast
+
+    results = []
+    for line in log.splitlines():
+        try:
+            message = json.loads(line).get("message", "")
+        except (json.JSONDecodeError, AttributeError):
+            message = line
+        if " passed: {" in message and "smoke" in message:
+            results.append(ast.literal_eval(message.split(" passed: ", 1)[1]))
+    return results
+
+
+def fake_ops_in(log: str) -> list[str]:
+    """The fake backend's logged operations (``fake backend: <op>``) in an
+    agent's text or JSON log lines, oldest first."""
+    ops = []
+    for line in log.splitlines():
+        try:
+            message = json.loads(line).get("message", "")
+        except (json.JSONDecodeError, AttributeError):
+            message = line
+        if "fake backend: " in message:
+            ops.append(message.split("fake backend: ", 1)[1].split()[0])
+    return ops
+
+
+def make_writable(root) -> None:
+    """Undo ``read_only`` under ``root`` so it can be removed."""
+    import os
+
+    for dirpath, _, files in os.walk(root):
+        os.chmod(dirpath, 0o755)
+        for name in files:
+            os.chmod(os.path.join(dirpath, name), 0o644)
+
+
+def prebuild_image(image, dockerfile: str) -> dict:
+    """Phase 19 (a): the image's build step on this machine. The package is
+    copied where the image puts it (``image/<app>``), the Dockerfile's
+    ``python -m tpu_cc_manager_torch.ops._build --dir DIR`` runs against
+    that copy, and ``DIR`` is made read-only (0555). Returns the paths, the
+    wall and nvcc's seconds per library."""
+    import os
+    import pathlib
+    import shutil
+
+    from tpu_cc_manager_torch import deploy
+
+    repo = pathlib.Path(__file__).resolve().parent
+    app_dir = os.path.dirname(deploy.package_dir(dockerfile))
+    app = image / app_dir.lstrip("/")
+    shutil.copytree(repo / "tpu_cc_manager_torch", app / "tpu_cc_manager_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    prebuilt = pathlib.Path(deploy.host_path(deploy.prebuild_dir(dockerfile), [], image,
+                                             app_dir, app))
+    command = deploy.prebuild_command(dockerfile)
+    command = [sys.executable, *command[1:command.index("--dir") + 1], str(prebuilt)]
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "TPU_CC_CACHE_DIR")}
+    env["PYTHONPATH"] = str(app)
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, cwd=str(app), env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"image build step {command}: rc {proc.returncode}: {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    for path in [prebuilt, *prebuilt.iterdir()]:
+        path.chmod(0o555)
+    return {"app": app, "prebuilt": prebuilt, "command": command, "wall_s": wall,
+            "seconds": summary["seconds"], "libraries": sorted(p.name for p in
+                                                               prebuilt.glob("*.so"))}
+
+
+def daemonset_problems(run: dict, smoke_k1: int, cards: int) -> list[str]:
+    """What phase 19 (b) requires of the manifest-started agent's flip on a
+    node of ``cards`` cards."""
+    problems = []
+    if not run["ready"]:
+        problems.append(f"no flip to on in {AGENT_FLIP_TIMEOUT_S} s")
+    elif run["drain_to_ready_s"] >= AGENT_BUDGET_S:
+        problems.append(f"drain->ready {run['drain_to_ready_s']:.3f} s is over the "
+                        f"{AGENT_BUDGET_S:g} s budget")
+    if run["healthz"] != 200:
+        problems.append(f"the liveness probe's /healthz answered {run['healthz']}")
+    if len(run["smokes"]) != 1:
+        problems.append(f"{len(run['smokes'])} verify smokes logged, want 1")
+    for res in run["smokes"]:
+        by_variant = res.get("kernel_launches_by_variant", {}).get("K1", {})
+        if not res.get("ok") or by_variant.get("sm90") != smoke_k1 or by_variant.get("simt"):
+            problems.append(f"the verify smoke was not ok with {smoke_k1} sm90 K1 launches: "
+                            f"ok={res.get('ok')} K1 {by_variant}")
+        if res.get("backend") != "cuda" or res.get("kernel") != "cuda" or \
+                res.get("devices") != cards:
+            problems.append(f"the verify smoke ran {res.get('kernel')} on "
+                            f"{res.get('devices')} {res.get('backend')} device(s), not K1 on "
+                            f"the {cards} card(s)")
+    if run["built"]:
+        problems.append(f"libraries were written outside the prebuilt directory: "
+                        f"{run['built']}")
+    if run["prebuilt_after"] != run["prebuilt_before"]:
+        problems.append("the prebuilt directory changed during the flip")
+    ops = run["fake_ops"]
+    if ops.count("set_ready") != 1 or "attest" not in ops or \
+            ops.index("attest") > ops.index("set_ready"):
+        problems.append(f"the fake's log lines do not show the ready state set once after "
+                        f"the attestation: {ops}")
+    if run["sigterm_rc"] != 0:
+        problems.append(f"SIGTERM gave exit {run['sigterm_rc']}")
+    return problems
+
+
+def daemonset_fake_flip(image, app, smoke_k1: int, cards: int,
+                        extra_env: dict | None = None) -> dict:
+    """Phase 19 (b): ``python -m tpu_cc_manager_torch`` started as its
+    container starts it (``deploy.container_launch``: the image's
+    entrypoint and env, the manifest's env, each hostPath under
+    ``image/host``, ``TPU_CC_CACHE_DIR`` an empty writable directory there)
+    against the mock apiserver, with only ``GPU_CC_BACKEND=fake`` and the
+    metrics port changed (a free one: the manifest's fixed port is a
+    deployment setting, not what the phase proves); ``extra_env`` is for a
+    run on the CPU. One flip to on."""
+    import pathlib
+    import signal
+    import urllib.request
+
+    from tpu_cc_manager_torch import deploy
+    from tpu_cc_manager_torch.ccmanager import localrig
+    from tpu_cc_manager_torch.labels import (
+        CC_MODE_LABEL,
+        CC_MODE_STATE_LABEL,
+        CC_READY_STATE_LABEL,
+    )
+    from tpu_cc_manager_torch.utils.launch import free_port
+
+    host = image / "host"
+    launch = deploy.container_launch(host, app, localrig.NODE)
+    cache = pathlib.Path(launch["env"]["TPU_CC_CACHE_DIR"])
+    cache.mkdir(parents=True, exist_ok=True)
+    prebuilt = app / "build" / "torch_kernels"
+
+    def listing() -> dict:
+        return {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in prebuilt.iterdir()}
+
+    port = free_port()
+    run = {"prebuilt_before": listing(), "launch": launch, "port": port}
+    with localrig.LocalRig(str(image / "rig")) as rig:
+        agent = rig.start_container(launch, env={"GPU_CC_BACKEND": "fake",
+                                                 "CC_METRICS_PORT": str(port),
+                                                 **(extra_env or {})})
+        # The host is not CC capable, so the agent first applies its default, off.
+        if not rig.await_labels({CC_MODE_STATE_LABEL: "off"}, 60):
+            fail(f"daemonset agent: no initial reconcile: {rig.log_of(agent)[-3000:]}")
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                run["healthz"] = r.status
+        except OSError as e:
+            run["healthz"] = str(e)
+        t0 = time.perf_counter()
+        rig.set_label(CC_MODE_LABEL, "on")
+        run["ready"] = rig.await_labels({CC_MODE_STATE_LABEL: "on",
+                                         CC_READY_STATE_LABEL: "true"}, AGENT_FLIP_TIMEOUT_S)
+        run["drain_to_ready_s"] = time.perf_counter() - t0
+        run["phases"], _ = localrig.await_phases(port, "on", AGENT_PHASES, 30)
+        agent.send_signal(signal.SIGTERM)
+        try:
+            run["sigterm_rc"] = agent.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            run["sigterm_rc"] = None
+        run["log"] = rig.log_of(agent)
+    run["smokes"] = smoke_results_in(run["log"])
+    run["fake_ops"] = fake_ops_in(run["log"])
+    run["built"] = sorted(str(p) for p in host.rglob("*.so"))
+    run["prebuilt_after"] = listing()
+    run["problems"] = daemonset_problems(run, smoke_k1, cards)
+    return run
+
+
+class GuardedNvml(FlipNvml):
+    """Phase 15's NVML, with the CC ready state's setter refused and
+    recorded: phase 19 never sets the real card's ready state."""
+
+    def __init__(self, *args) -> None:
+        super().__init__(*args)
+        self.set_calls = []
+
+    def set_gpus_ready_state(self, state: int) -> None:
+        from tpu_cc_manager_torch.gpudev.contract import GpuError
+
+        self.set_calls.append(state)
+        raise GpuError("chip_smoke never sets the card's CC ready state")
+
+
+def daemonset_h100_flip(torch, directory) -> dict:
+    """Phase 19 (c): the manifest's backend, ``h100``, over phase 15's
+    stand-ins (``gpudev/standin_admin.py``, a stand-in sysfs tree where the
+    machine has no PCI bus, NVML's CC state following the stand-in), with
+    the agent (``CCManager.watch_and_apply`` on a thread, the manager's own
+    verifier) configured from the manifest's smoke env. The flip to on must
+    fail closed at the attestation (NVML refuses the report with the card's
+    CC off), the node labelled failed with its reason and the agent alive,
+    and the card's ready state unchanged with no set call."""
+    import threading
+
+    from tpu_cc_manager_torch import deploy
+    from tpu_cc_manager_torch.ccmanager.manager import CCManager
+    from tpu_cc_manager_torch.ccmanager.node import NodeBackend
+    from tpu_cc_manager_torch.drain.sim import add_drainable_node
+    from tpu_cc_manager_torch.gpudev import pci
+    from tpu_cc_manager_torch.gpudev.nvml import Nvml, mode_from_state
+    from tpu_cc_manager_torch.kubeclient.api import node_labels
+    from tpu_cc_manager_torch.kubeclient.fake import FakeKube
+    from tpu_cc_manager_torch.labels import (
+        CC_FAILED_REASON_LABEL,
+        CC_MODE_LABEL,
+        CC_MODE_STATE_LABEL,
+        MODE_OFF,
+        STATE_FAILED,
+    )
+    from tpu_cc_manager_torch.obs.journal import Journal
+    from tpu_cc_manager_torch.smoke.runner import run_workload_subprocess
+    from tpu_cc_manager_torch.utils.metrics import MetricsRegistry
+    from tpu_cc_manager_torch.utils.poll import poll_until
+
+    env = deploy.env(deploy.MANIFEST.read_text())
+    found = pci.scan("/sys")
+    by_bdf = pci.torch_index_by_bdf()
+    torch_uuid = {bdf: f"GPU-{torch.cuda.get_device_properties(i).uuid}"
+                  for bdf, i in by_bdf.items()}
+    with Nvml() as nvml:
+        start = nvml_view(nvml)
+    gpu, admin_dir = standin_h100(torch, directory, mode_from_state(start["state"],
+                                                                    start["settings"]),
+                                  by_bdf, torch_uuid,
+                                  any(f.kind == "nvswitch" for f in found),
+                                  pci.pci_bus_present("/sys"))
+    gpu.nvml = GuardedNvml(str(admin_dir), torch_uuid)
+    smokes = []
+
+    def smoke(workload: str) -> dict:
+        smokes.append(workload)
+        return run_workload_subprocess(workload, timeout_s=300)
+
+    kube = FakeKube()
+    add_drainable_node(kube, AGENT_NODE, AGENT_NS)
+    registry = MetricsRegistry()
+    agent = CCManager(
+        api=kube, backend=NodeBackend(gpu), node_name=AGENT_NODE, default_mode=MODE_OFF,
+        operator_namespace=env["OPERATOR_NAMESPACE"], evict_components=True,
+        eviction_poll_interval_s=0.02, smoke_workload=env["CC_SMOKE_WORKLOAD"],
+        smoke_runner=smoke, metrics=registry, journal=Journal(trace_file=""),
+        watch_timeout_s=1, reconnect_delay_s=0.0,
+        readiness_file=str(directory / "ready"), state_dir=str(directory / "state"))
+    stop = threading.Event()
+    thread = threading.Thread(target=agent.watch_and_apply, args=(stop,), daemon=True,
+                              name="agent-h100")
+    thread.start()
+
+    def labels() -> dict:
+        return node_labels(kube.get_node(AGENT_NODE))
+
+    settled = poll_until(lambda: labels().get(CC_MODE_STATE_LABEL) == MODE_OFF, 60, 0.05)
+    t0 = time.perf_counter()
+    kube.patch_node_labels(AGENT_NODE, {CC_MODE_LABEL: "on"})
+    failed = poll_until(lambda: labels().get(CC_MODE_STATE_LABEL) == STATE_FAILED, 120, 0.05)
+    wall = time.perf_counter() - t0
+    alive = thread.is_alive()
+    stop.set()
+    thread.join(timeout=10)
+    with Nvml() as nvml:
+        end = nvml_view(nvml)
+    last = registry.last()
+    return {"settled": settled, "failed": failed, "wall_s": wall, "alive": alive,
+            "labels": labels(), "reason": labels().get(CC_FAILED_REASON_LABEL),
+            "failed_phases": [p.name for p in last.phases if not p.ok] if last else [],
+            "phase_s": {p.name: round(p.seconds, 6) for p in last.phases} if last else {},
+            "smokes": smokes, "ready_before": start["ready"], "ready_after": end["ready"],
+            "state_before": start["state"], "state_after": end["state"],
+            "set_calls": gpu.nvml.set_calls,
+            "ops": [op for op, _ in gpu.op_log]}
+
+
+def check_daemonset_agent(torch, smi_line: str, smoke_k1: int) -> dict:
+    """Phase 19: the agent as its DaemonSet starts it (see the module
+    docstring). Returns the verify smoke's launch counts."""
+    import pathlib
+    import shutil
+
+    from tpu_cc_manager_torch import deploy
+
+    t0 = time.perf_counter()
+    image = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_image"
+    if image.exists():
+        make_writable(image)
+        shutil.rmtree(image)
+    dockerfile = deploy.DOCKERFILE.read_text()
+
+    # --- (a) the image's build step ---
+    built = prebuild_image(image, dockerfile)
+    say(f"daemonset: image build step {' '.join(built['command'][1:])}: nvcc "
+        f"{json.dumps({k: round(v, 3) for k, v in built['seconds'].items()})} s, wall "
+        f"{built['wall_s']:.3f} s; {built['libraries']} in {built['prebuilt']}, made "
+        f"read-only (0555)")
+    if len(built["libraries"]) != len(built["seconds"]) or not built["libraries"]:
+        fail(f"daemonset: the build step built {built['seconds']} but left "
+             f"{built['libraries']}")
+
+    # --- (b) the manifest-started agent over the fake device layer ---
+    run = daemonset_fake_flip(image, built["app"], smoke_k1, torch.cuda.device_count())
+    counts = {}
+    for res in run["smokes"]:
+        counts = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
+        say(f"daemonset: verify smoke ok={res['ok']} devices={res['devices']} kernel "
+            f"{res.get('kernel')} K1 sm90={counts.get('K1/sm90')} simt={counts.get('K1/simt')}"
+            f"; warmup compile {res.get('warmup_compile_s')} s, overlap "
+            f"{res.get('warmup_overlap_s')} s, dispatch {res.get('warmup_dispatch_s')} s")
+    env = run["launch"]["env"]
+    say(f"daemonset: {' '.join(run['launch']['cmd'])} with the manifest's env "
+        f"(GPU_CC_BACKEND=fake, CC_METRICS_PORT={run['port']}; "
+        f"TPU_CC_CACHE_DIR={env['TPU_CC_CACHE_DIR']}): drain->ready "
+        f"{run['drain_to_ready_s']:.3f} s (budget {AGENT_BUDGET_S:g} s; {smi_line}); "
+        f"tpu_cc_phase_seconds {json.dumps(run['phases'])}; /healthz {run['healthz']}; "
+        f"libraries written outside the prebuilt directory {len(run['built'])}; fake backend "
+        f"ops in the agent's log {run['fake_ops']}; SIGTERM exit {run['sigterm_rc']}")
+    if run["problems"]:
+        fail("daemonset agent: " + "; ".join(run["problems"]) + f": {run['log'][-3000:]}")
+
+    # --- (c) the manifest's h100 backend over the stand-ins: fails closed ---
+    directory = image / "h100"
+    h100 = daemonset_h100_flip(torch, directory)
+    say(f"daemonset [h100]: flip -> on failed={h100['failed']} in {h100['wall_s']:.3f} s at "
+        f"{h100['failed_phases']} (phases {json.dumps(h100['phase_s'])}), reason "
+        f"{h100['reason']!r}, agent alive {h100['alive']}; NVML ready state before "
+        f"{h100['ready_before']}, after {h100['ready_after']}; set calls {h100['set_calls']}; "
+        f"backend ops {h100['ops']}")
+    problems = []
+    if not (h100["settled"] and h100["failed"] and h100["alive"]):
+        problems.append(f"the flip did not fail with the agent alive: {h100['labels']}")
+    if h100["failed_phases"] != ["attest"] or h100["smokes"]:
+        problems.append(f"the flip failed at {h100['failed_phases']}, not at its attestation "
+                        f"before the smoke ({h100['smokes']})")
+    if not h100["reason"]:
+        problems.append("the failed node carries no reason")
+    if h100["ready_after"] != h100["ready_before"] or h100["state_after"] != \
+            h100["state_before"]:
+        problems.append("the card's CC ready state or CC state changed")
+    if h100["set_calls"] or "set_ready" in h100["ops"]:
+        problems.append("the ready state was set without a verified quote")
+    if problems:
+        fail("daemonset [h100]: " + "; ".join(problems))
+    say(f"daemonset: phase wall {time.perf_counter() - t0:.3f} s")
+    make_writable(image)
+    shutil.rmtree(image, ignore_errors=True)
+    return counts
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--only-kernels", action="store_true",
@@ -2860,9 +3243,8 @@ def main(argv: list[str] | None = None) -> int:
             f"per_device={json.dumps(res['per_device'])}")
         if res["backend"] != "cuda":
             fail(f"matmul smoke ran on {res['backend']}, not the card")
-        # The stock path verifies every card; K1 runs on one, as pallas does.
-        want_devices = 1 if kernel == "cuda" else torch.cuda.device_count()
-        check_devices(f"matmul smoke --kernel {kernel}", res, want_devices)
+        # Either kernel verifies every card.
+        check_devices(f"matmul smoke --kernel {kernel}", res, torch.cuda.device_count())
         if kernel == "cuda":
             paths["matmul smoke"] = launches
             if launches["K1"] <= 0 or launches["K1/sm90"] != launches["K1"]:
@@ -2970,7 +3352,11 @@ def main(argv: list[str] | None = None) -> int:
     paths["federated flip verify smoke"] = check_federated_pool(
         torch, smi_line, paths["matmul smoke"]["K1"])
 
-    # --- 19. kernel summary -----------------------------------------------------
+    # --- 19. the agent as its DaemonSet starts it ---------------------------------
+    paths["daemonset agent verify smoke"] = check_daemonset_agent(
+        torch, smi_line, paths["matmul smoke"]["K1"])
+
+    # --- 20. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -2996,7 +3382,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 20. last line ------------------------------------------------------------
+    # --- 21. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -50,8 +50,8 @@ RENAMES = {"TpuCcBackend": "NodeBackend", "SliceTopology": "SliceView",
 # Names the CLI takes from its device layer: present, typed by that layer.
 DEVICE_LAYER = {"ccmanager.cli": {"load_backend"}}
 # Constants the port sets to its own value: the lint's baseline is a file
-# of the port's package.
-OWN_VALUES = {"lint.baseline": {"BASELINE_FILE"}}
+# of the port's package, and its manifest the H100 DaemonSet.
+OWN_VALUES = {"lint.baseline": {"BASELINE_FILE"}, "lint.surface": {"DAEMONSET_PATH"}}
 
 
 def normalise(text: str) -> str:
@@ -290,7 +290,11 @@ SEAM = {
         ["                from tpu_cc_manager.tpudev.fake import FakeTpuBackend",
          "                allow_fake_quotes = isinstance(backend, FakeTpuBackend)"],
         ["                from tpu_cc_manager.tpudev.contract import is_fake_backend",
-         "                allow_fake_quotes = is_fake_backend(backend)"]),
+         "                allow_fake_quotes = is_fake_backend(backend)",
+         # The H100's CC ready state, set after a verified quote: on the
+         # idempotent re-attestation path, then on the apply path.
+         "                    self.backend.set_gpus_ready()",
+         "                    self.backend.set_gpus_ready()"]),
     # The serving harness's pool: one HGX-style fake node behind the
     # manager's NodeBackend where the JAX harness builds a two-chip v5p.
     "serve/harness.py": (
@@ -311,10 +315,12 @@ SEAM = {
     "lint/baseline.py": (
         ['BASELINE_FILE = ".cclint-baseline.json"'],
         ['BASELINE_FILE = "tpu_cc_manager/lint/cclint-baseline.json"']),
+    # Its manifest is the H100 DaemonSet (tpu_cc_manager_torch/deploy/).
     "lint/surface.py": (
-        [],
+        ['DAEMONSET_PATH = "deployments/manifests/daemonset.yaml"'],
         ['PORT_ENV_PATH = "README.md"',
          'PORT_ENV_HEADING = "### Environment of the port"',
+         'DAEMONSET_PATH = "tpu_cc_manager/deploy/daemonset.yaml"',
          'def _port_env_table(text: str | None) -> str:',
          '    if text is None or PORT_ENV_HEADING not in text:',
          '        return ""',
@@ -328,6 +334,8 @@ SEAM = {
 # author's machine and the numbers of the changes that added a feature,
 # which a copy does not carry.
 PROSE = {"ccmanager/remediation.py": 2, "ccmanager/multislice.py": 1,
+         # The comment above each ready-state line.
+         "ccmanager/manager.py": (0, 2),
          "ccmanager/rollout_state.py": 3, "ccmanager/rolling.py": 2, "serve/sweep.py": 1,
          "obs/fleet.py": 1, "ccmanager/federation.py": 2, "lint/__init__.py": 2,
          "lint/baseline.py": 1, "lint/fenced.py": 1, "lint/journal.py": 1, "lint/waits.py": 1,

@@ -34,12 +34,17 @@ TESTS = pathlib.Path(__file__).resolve().parent
 
 #: Imports a JAX suite makes that the port answers with a name of its own.
 SEAMS = {("tpu_cc_manager.tpudev.fake", "FakeTpuBackend"): (__name__, "FakeNode"),
+         ("tpu_cc_manager.tpudev.fake", "sign_fake_quote"):
+             ("tpu_cc_manager_torch.gpudev.fake", "sign_fake_quote"),
+         ("tpu_cc_manager.tpudev", "attestation"): ("tpu_cc_manager_torch.gpudev", "attestation"),
          ("tpu_cc_manager.tpudev.contract", "SliceTopology"):
              ("tpu_cc_manager_torch.ccmanager.node", "SliceView")}
 #: A JAX package path and its port's, for suites that name files of the
-#: package in strings (``paths=True``); the longest prefix first.
+#: package in strings (``paths=True``); the longest prefix first. The JAX
+#: agent's DaemonSet manifest is the H100 one's counterpart.
 PATHS = (("tpu_cc_manager/tpudev/", "tpu_cc_manager_torch/gpudev/"),
-         ("tpu_cc_manager/", "tpu_cc_manager_torch/"))
+         ("tpu_cc_manager/", "tpu_cc_manager_torch/"),
+         ("deployments/manifests/daemonset.yaml", "tpu_cc_manager_torch/deploy/daemonset.yaml"))
 
 
 class FakeNode(NodeBackend):
@@ -52,6 +57,13 @@ class FakeNode(NodeBackend):
                  **kwargs) -> None:
         if num_hosts != 1 or host_index != 0:
             raise ValueError("an H100 node is a one-host slice")
+        slice_cc = kwargs.pop("slice_cc_supported", None)
+        if slice_cc is not None:
+            # A chip's slice-CC support is its GPU's PPCIe support; the
+            # NVSwitches support it.
+            kwargs["ppcie_supported"] = (
+                list(slice_cc) + [True] * kwargs.get("num_switches", 4)
+                if isinstance(slice_cc, (list, tuple)) else slice_cc)
         super().__init__(FakeGpuBackend(num_gpus=num_chips, node_id=slice_id, **kwargs))
 
     def __getattr__(self, name):
@@ -100,8 +112,8 @@ def port_path(text: str) -> str:
 
 
 class _ToPort(ast.NodeTransformer):
-    def __init__(self, paths: bool, modules: dict[str, str]) -> None:
-        self.paths, self.modules = paths, modules
+    def __init__(self, paths: bool, modules: dict[str, str], strings: dict[str, str]) -> None:
+        self.paths, self.modules, self.strings = paths, modules, strings
 
     def visit_ImportFrom(self, node):
         return _port_import(node)
@@ -115,21 +127,26 @@ class _ToPort(ast.NodeTransformer):
         return node
 
     def visit_Constant(self, node):
-        if self.paths and isinstance(node.value, str):
-            node.value = port_path(node.value)
+        if isinstance(node.value, str):
+            if self.paths:
+                node.value = port_path(node.value)
+            for old, new in self.strings.items():
+                node.value = node.value.replace(old, new)
         return node
 
 
 def port_suite(namespace: dict, suite: str, drop: tuple[str, ...] = (), paths: bool = False,
-               modules: dict[str, str] | None = None) -> None:
+               modules: dict[str, str] | None = None,
+               strings: dict[str, str] | None = None) -> None:
     """Run ``tests/<suite>.py`` into ``namespace`` (the calling test
     module's globals) with its imports read from the port. ``drop`` names
     top-level definitions and imported names to leave out; each must
     exist, so a renamed JAX case fails here instead of running nowhere.
     ``paths`` reads every string that starts with a path of the JAX
     package as the port's path (:data:`PATHS`); ``modules`` binds a plain
-    ``import <name>`` to a module of the port instead. Assertions are
-    rewritten as pytest rewrites a test module's, and tracebacks point at
+    ``import <name>`` to a module of the port instead; ``strings`` replaces
+    text in every string constant (code a suite runs in a child process).
+    Assertions are rewritten as pytest rewrites a test module's, and tracebacks point at
     the JAX file's lines."""
     path = TESTS / f"{suite}.py"
     source = path.read_bytes()
@@ -151,7 +168,8 @@ def port_suite(namespace: dict, suite: str, drop: tuple[str, ...] = (), paths: b
     if missing:
         raise ValueError(f"{suite} has no top-level {sorted(missing)}")
     tree.body = body
-    tree = ast.fix_missing_locations(_ToPort(paths, modules or {}).visit(tree))
+    tree = ast.fix_missing_locations(
+        _ToPort(paths, modules or {}, strings or {}).visit(tree))
     rewrite_asserts(tree, source, str(path))
     exec(compile(tree, str(path), "exec"), namespace)
 
@@ -160,6 +178,13 @@ def port_suite(namespace: dict, suite: str, drop: tuple[str, ...] = (), paths: b
 def fake_kube():
     """The port's ``FakeKube`` (the conftest one is the JAX package's)."""
     return FakeKube()
+
+
+@pytest.fixture()
+def fake_tpu():
+    """The port's fake node (the conftest one is the JAX package's
+    ``FakeTpuBackend``)."""
+    return FakeNode()
 
 
 def test_port_suite_reads_the_port():
@@ -182,6 +207,8 @@ def test_port_suite_reads_paths_and_binds_modules():
     plain import to a module of the port."""
     assert port_path("tpu_cc_manager/ctl.py") == "tpu_cc_manager_torch/ctl.py"
     assert port_path("tpu_cc_manager/tpudev/impl.py") == "tpu_cc_manager_torch/gpudev/impl.py"
+    assert port_path("deployments/manifests/daemonset.yaml") == \
+        "tpu_cc_manager_torch/deploy/daemonset.yaml"
     for text in ("tests/test_x.py", "cclint (tpu_cc_manager/lint/)", "tpu_cc_manager.ctl"):
         assert port_path(text) == text
     ns = {"__name__": "port_suite_probe", "__file__": __file__}

@@ -84,11 +84,14 @@ def test_smoke_verifies_every_device(monkeypatch, workload, kwargs):
         assert result["kernel_launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 
-def test_cuda_matmul_kernel_stays_on_one_device():
-    result = runner.run_workload("matmul", size=256, iters=1, kernel="cuda", device="cpu",
-                                 n_devices=2)
-    assert result["devices"] == 1 and result["visible_devices"] == 1
-    assert len(result["per_device"]) == 1
+def test_cuda_matmul_kernel_stays_on_one_device(monkeypatch):
+    """K1, the default kernel, verifies every card as the stock kernel does:
+    one worker and one set of oracles per card, each at K1's tile."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned workers' threads
+    result = runner.run_workload("matmul", size=256, iters=1, device="cpu", n_devices=2)
+    assert result["kernel"] == "cuda" and result["blocks"] == list(KERNEL_BLOCKS)
+    assert result["ok"] is True and result["devices"] == 2 and result["visible_devices"] == 1
+    assert len(result["per_device"]) == 2 and all(c["ok"] for c in result["per_device"])
     with pytest.raises(runner.SmokeConfigError, match="positive integer"):
         runner.run_workload("matmul", size=256, device="cpu", n_devices=0)
 
@@ -308,8 +311,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port imports without JAX, the JAX package or
     nvcc: nothing is built or loaded at import. The agent's, the fleet
     rollout's and the operator's modules (``ccmanager``, ``serve``,
-    ``faults``, ``ctl``, ``obs/fleet``, ``lint`` and what they import)
-    import no torch, and importing ``__main__`` does not start the agent."""
+    ``faults``, ``ctl``, ``obs/fleet``, ``lint``, the deployment's readers
+    ``deploy`` and what they import) import no torch, and importing
+    ``__main__`` does not start the agent. The kernels' build command
+    (``ops/_build.py``) is one of the modules."""
     code = """
 import importlib, pkgutil, sys
 import tpu_cc_manager_torch.ccmanager.cli, tpu_cc_manager_torch.ccmanager.localrig
@@ -317,6 +322,7 @@ import tpu_cc_manager_torch.ccmanager.rolling, tpu_cc_manager_torch.serve
 import tpu_cc_manager_torch.faults, tpu_cc_manager_torch.drain.sim
 import tpu_cc_manager_torch.ctl, tpu_cc_manager_torch.ccmanager.federation
 import tpu_cc_manager_torch.obs.fleet, tpu_cc_manager_torch.lint.__main__
+import tpu_cc_manager_torch.deploy
 assert not [m for m in sys.modules if m == "torch" or m.startswith("torch.")]
 import tpu_cc_manager_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_cc_manager_torch.__path__, "tpu_cc_manager_torch.")]
@@ -335,5 +341,5 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 99
+    assert int(proc.stdout.strip()) >= 100
     assert "node-name" not in proc.stderr and "tpu-cc-manager" not in proc.stderr

@@ -83,12 +83,13 @@ class LocalRig:
     def __exit__(self, *exc) -> None:
         self.close()
 
-    def _spawn(self, name: str, cmd: list[str], env: dict) -> subprocess.Popen:
+    def _spawn(self, name: str, cmd: list[str], env: dict,
+               cwd: str = REPO_ROOT) -> subprocess.Popen:
         log = self.workdir / f"{name}.log"
         with open(log, "w", encoding="utf-8") as out:
             proc = subprocess.Popen(
                 ["timeout", "--foreground", "-k", "5", str(LIFETIME_S), *cmd],
-                stdout=out, stderr=subprocess.STDOUT, env=env, cwd=REPO_ROOT,
+                stdout=out, stderr=subprocess.STDOUT, env=env, cwd=cwd,
                 start_new_session=True)
         self.procs.append(proc)
         self.logs[proc.pid] = log
@@ -130,6 +131,15 @@ class LocalRig:
             args = [*args, "--metrics-port", str(metrics_port)]
         return self._spawn(f"agent-{len(self.procs)}",
                            [sys.executable, "-m", "tpu_cc_manager_torch", *args], full_env)
+
+    def start_container(self, launch: dict, env: dict | None = None) -> subprocess.Popen:
+        """The agent as its container runs it (``deploy.container_launch``:
+        command, environment, working directory) for the mock's node, with
+        ``KUBECONFIG`` pointing at the mock in place of the in-cluster
+        config, and ``env`` over the container's."""
+        full_env = {**launch["env"], "KUBECONFIG": self.kubeconfig, **(env or {})}
+        return self._spawn(f"agent-{len(self.procs)}", launch["cmd"], full_env,
+                           cwd=launch["cwd"])
 
     def log_of(self, proc: subprocess.Popen) -> str:
         return self.logs[proc.pid].read_text(encoding="utf-8", errors="replace")

@@ -927,6 +927,8 @@ class CCManager:
                         debug_policy=(mode == MODE_DEVTOOLS),
                         allow_fake=self.allow_fake_quotes,
                     )
+                    # A node that rebooted in a CC mode holds CUDA work back.
+                    self.backend.set_gpus_ready()
                 except GpuError as e:
                     log.warning(
                         "mode %s reads as set but re-attestation failed (%s); "
@@ -1389,6 +1391,8 @@ class CCManager:
                         debug_policy=(mode == MODE_DEVTOOLS),
                         allow_fake=self.allow_fake_quotes,
                     )
+                    # CUDA work is held back until the GPUs' ready state is set.
+                    self.backend.set_gpus_ready()
             # Verify 3: end-to-end JAX smoke workload (new), with the
             # attestation-digest fast path (env-gated, default off): a
             # flip landing on the exact runtime digest the last FULL

@@ -16,7 +16,10 @@ way, and is the only place they touch ``gpudev``:
 - the label mode ``slice`` is the device layer's ``ppcie``, both ways; a
   fake quote's HMAC covers the mode, so it is signed again under the label
   mode (the ``h100`` evidence does not cover it);
-- :class:`GpuError` is the error the manager catches.
+- :class:`GpuError` is the error the manager catches;
+- ``set_gpus_ready`` has no JAX counterpart: the manager calls it after a
+  verified quote of a CC mode, because an H100 in a CC mode holds CUDA work
+  back until the GPUs' ready state is set.
 """
 
 from __future__ import annotations
@@ -140,6 +143,9 @@ class NodeBackend:
             signature = sign_fake_quote(quote.slice_id, nonce, mode, measurements)
         return dataclasses.replace(quote, mode=mode, measurements=measurements,
                                    signature=signature)
+
+    def set_gpus_ready(self) -> None:
+        self.gpu.set_gpus_ready()
 
     def prepare_attestation(self) -> None:
         self.gpu.prepare_attestation()

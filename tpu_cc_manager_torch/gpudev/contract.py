@@ -153,6 +153,11 @@ class GpuCcBackend(abc.ABC):
         wait_ready(devices, timeout)   # wait_for_boot on each
         query_cc_mode(device) == mode  # verify, per device
         fetch_attestation(nonce)       # the platform agrees
+        set_gpus_ready()               # CC modes only, after the quote verified
+
+    The last step has no JAX counterpart: on Hopper in a CC mode CUDA work
+    is held back until the GPUs' ready state is set, and the agent
+    sets it only once the node's quote has verified.
     """
 
     @abc.abstractmethod
@@ -190,6 +195,13 @@ class GpuCcBackend(abc.ABC):
     @abc.abstractmethod
     def fetch_attestation(self, nonce: str) -> AttestationQuote:
         """A quote of the node's current state bound to ``nonce``."""
+
+    @abc.abstractmethod
+    def set_gpus_ready(self) -> None:
+        """Let the node's GPUs accept CUDA work in a CC mode (NVML's
+        ``nvmlSystemSetConfComputeGpusReadyState``). A reset into a CC mode
+        leaves them not ready; the caller sets this only after a verified
+        quote, and never for ``off``."""
 
     def prepare_attestation(self) -> None:
         """Warm what ``fetch_attestation`` can precompute; advisory."""

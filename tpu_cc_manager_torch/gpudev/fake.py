@@ -13,7 +13,13 @@ NVSwitches. It implements the whole contract with:
 - scalar or per-device reset and boot latencies, the per-device ones
   fanned out on a bounded pool, each device's reset seconds in ``op_log``;
 - quotes HMAC-signed with the JAX fake's key and message, byte for byte,
-  so the JAX verifier accepts them.
+  so the JAX verifier accepts them;
+- the GPUs' CC ready state: a reset into a CC mode clears it and
+  ``set_gpus_ready`` sets it, and :meth:`FakeGpuBackend.run_smoke`, a
+  stand-in verify smoke, is refused while it is clear, as CUDA work is
+  refused; the attestation and the set are logged (``fake backend:
+  attest``, ``fake backend: set_ready``), so their order shows in the log
+  of an agent process that runs the fake.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 import hashlib
 import hmac
 import json
+import logging
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -40,6 +47,8 @@ from tpu_cc_manager_torch.gpudev.contract import (
     raise_pool_errors,
     reset_parallelism,
 )
+
+log = logging.getLogger(__name__)
 
 # The JAX fake's shared secret (tpudev/fake.py): the verifiers of both
 # device layers recompute the same HMAC.
@@ -115,6 +124,9 @@ class FakeGpuBackend(GpuCcBackend):
         self.fail: dict[str, int] = {}
         # Ordered (op, payload) log for ordering assertions.
         self.op_log: list[tuple[str, object]] = []
+        # The GPUs' CC ready state: a node that boots into a CC mode holds
+        # CUDA work back until the agent sets it; with CC off work runs.
+        self.gpus_ready = initial_mode == MODE_OFF
         self.healthy = True
         self.health_tier = "probe-cmd"
         self.preempted = False
@@ -142,6 +154,10 @@ class FakeGpuBackend(GpuCcBackend):
         if self.committed_ppcie[index] == PPCIE_ON:
             return MODE_PPCIE
         return self.committed_cc.get(index, MODE_OFF)
+
+    def _cc_on(self) -> bool:
+        """Whether any GPU holds a CC mode (``on``, ``devtools``, PPCIe)."""
+        return any(self._mode_of(d.index) != MODE_OFF for d in self._topology.devices)
 
     def _with_switches(self, devices: tuple[GpuDevice, ...]) -> tuple[GpuDevice, ...]:
         """``devices`` plus the node's NVSwitches when PPCIe is staged on
@@ -268,6 +284,7 @@ class FakeGpuBackend(GpuCcBackend):
                     self._boot_done_at[d.index] = now + self._latency_for(
                         self.boot_latency_s, d.index)
         with self._lock:
+            self.gpus_ready = not self._cc_on()
             self.op_log.append(("reset", tuple(d.index for d in targets)))
 
     def wait_ready(self, devices: tuple[GpuDevice, ...], timeout_s: float) -> None:
@@ -297,6 +314,7 @@ class FakeGpuBackend(GpuCcBackend):
                 self.booted[d.index] = False
                 self._boot_done_at[d.index] = now + self._latency_for(
                     self.boot_latency_s, d.index)
+            self.gpus_ready = not self._cc_on()
             self.op_log.append(
                 ("restart_runtime", tuple(d.index for d in self._topology.devices)))
 
@@ -329,6 +347,27 @@ class FakeGpuBackend(GpuCcBackend):
         }
         sig = sign_fake_quote(topo.node_id, nonce, mode, measurements)
         self.op_log.append(("attest", nonce))
+        log.info("fake backend: attest")
         return AttestationQuote(slice_id=topo.node_id, nonce=nonce, mode=mode,
                                 measurements=measurements, signature=sig, platform="fake")
 
+    def set_gpus_ready(self) -> None:
+        """Set the ready state; refused, as NVML refuses it, with CC off."""
+        self._maybe_fail("set_ready")
+        with self._lock:
+            if not self._cc_on():
+                raise GpuError("the CC ready state cannot be set with CC off")
+            self.gpus_ready = True
+            self.op_log.append(("set_ready", tuple(d.index for d in self._topology.devices)))
+        log.info("fake backend: set_ready")
+
+    def run_smoke(self, workload: str) -> dict:
+        """A stand-in verify smoke (``CCManager(smoke_runner=...)``) that
+        asks the fake for its GPUs: refused while the ready state is clear,
+        as CUDA work is refused."""
+        with self._lock:
+            if not self.gpus_ready:
+                raise GpuError(f"smoke {workload}: CUDA work refused, the GPUs' CC ready "
+                               "state is not set")
+            self.op_log.append(("smoke", workload))
+        return {"ok": True, "workload": workload}

@@ -60,7 +60,11 @@ from tpu_cc_manager_torch.gpudev.contract import (
     raise_pool_errors,
     reset_parallelism,
 )
-from tpu_cc_manager_torch.gpudev.nvml import Nvml, NvmlError
+from tpu_cc_manager_torch.gpudev.nvml import (
+    NVML_CC_ACCEPTING_CLIENT_REQUESTS_TRUE,
+    Nvml,
+    NvmlError,
+)
 from tpu_cc_manager_torch.utils.gpu_info import variant_from_name
 
 log = logging.getLogger(__name__)
@@ -357,6 +361,16 @@ class H100Backend(GpuCcBackend):
         with self._lock:
             self._awaiting_boot.difference_update(d.bdf for d in targets)
         self._log("wait_ready", tuple(d.bdf for d in targets))
+
+    def set_gpus_ready(self) -> None:
+        """NVML's CC ready state set to accept work and read back. With CC
+        off NVML refuses: NvmlError with its code."""
+        with self.nvml as nvml:
+            nvml.set_gpus_ready_state(NVML_CC_ACCEPTING_CLIENT_REQUESTS_TRUE)
+            state = nvml.gpus_ready_state()
+        if state != NVML_CC_ACCEPTING_CLIENT_REQUESTS_TRUE:
+            raise GpuError(f"NVML reads the CC ready state as {state} after setting it")
+        self._log("set_ready", state)
 
     def probe_runtime_health(self) -> HealthProbe:
         gpus = self._topology.devices if self._topology else ()

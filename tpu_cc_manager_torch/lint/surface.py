@@ -37,7 +37,7 @@ ENV_RE = re.compile(r"^CC_[A-Z0-9_]+$")
 DOCS_ENV_PATH = "docs/operations.md"
 PORT_ENV_PATH = "README.md"
 PORT_ENV_HEADING = "### Environment of the port"
-DAEMONSET_PATH = "deployments/manifests/daemonset.yaml"
+DAEMONSET_PATH = "tpu_cc_manager_torch/deploy/daemonset.yaml"
 METRICS_PATH = "tpu_cc_manager_torch/utils/metrics.py"
 LABELS_PATH = "tpu_cc_manager_torch/labels.py"
 DOC_PATHS = ("docs/observability.md", "docs/operations.md")

@@ -15,26 +15,39 @@ raises when it is not 0. Building uses the repository's sources only.
 Nothing happens at import: the first :func:`load` (or an explicit
 :func:`build`) compiles, so CPU-only hosts never need ``nvcc``.
 
-The build directory is the first of :func:`candidate_build_dirs` this
-process can create and write, chosen as the JAX package chooses its
-compilation cache: ``$TPU_CC_CACHE_DIR`` (the DaemonSet sets it), then
-``build/torch_kernels`` beside the package, then the tmpdir. An image's
-site-packages is root-owned while the agent runs as nonroot, so a node
-falls through to the later candidates. A library found there is loaded
-into the process, so a candidate is created private (mode 0700), and one
-that exists is taken only when this user owns it and no one else may write
-it: another user cannot plant a library in a shared tmpdir.
+A library is looked up in every one of :func:`candidate_build_dirs`, in
+order, before anything is built: ``$TPU_CC_CACHE_DIR/torch_kernels`` (the
+DaemonSet sets it), then ``build/torch_kernels`` beside the package, where
+an image puts the libraries it prebuilt (``python -m
+tpu_cc_manager_torch.ops._build``), then the tmpdir. A directory and the
+library in it are loaded only when they belong to this user or to root and
+neither group nor other may write them, so a read-only, root-owned
+directory of an image serves, and a library another user could have
+planted does not.
+
+Only a missing library is built, into the first candidate this process can
+create and write, chosen as the JAX package chooses its compilation cache.
+A build directory is created private (mode 0700), and one that exists is
+taken only when this user owns it and no one else may write it.
+
+    python -m tpu_cc_manager_torch.ops._build [--dir DIR]
+
+builds every ``csrc/*.cu`` into ``DIR`` (default: :func:`build_dir`) and
+prints the seconds per library; an image runs it to ship its libraries.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import pathlib
 import stat
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -117,10 +130,12 @@ def candidate_build_dirs() -> list[pathlib.Path]:
     return candidates
 
 
-def _unsafe(candidate: pathlib.Path) -> str | None:
-    """Why another user could put a library in ``candidate``, or None."""
+def _unsafe(candidate: pathlib.Path, owners: tuple[int, ...] = ()) -> str | None:
+    """Why another user could put a library in ``candidate`` (a directory
+    or a library), or None. It must belong to this user or to one of
+    ``owners``."""
     st = candidate.stat()
-    if st.st_uid != os.geteuid():
+    if st.st_uid != os.geteuid() and st.st_uid not in owners:
         return f"owned by uid {st.st_uid}, not {os.geteuid()}"
     if st.st_mode & (stat.S_IWGRP | stat.S_IWOTH):
         return f"group- or other-writable (mode {stat.S_IMODE(st.st_mode):o})"
@@ -153,31 +168,76 @@ def build_dir() -> pathlib.Path:
     return _first_writable(tuple(candidate_build_dirs()))
 
 
-def library_path(name: str) -> pathlib.Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every shared
-    header under ``csrc/`` (a header edit rebuilds) and the flags."""
+def library_name(name: str) -> str:
+    """The file ``csrc/<name>.cu`` builds to: keyed by the source, every
+    shared header under ``csrc/`` (a header edit rebuilds) and the flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode())
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+    return f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: list[str] | None = None) -> dict[str, float]:
-    """Compile every missing library in ``names`` (default: all), one nvcc
+def library_path(name: str) -> pathlib.Path:
+    """Where a build of ``csrc/<name>.cu`` writes its library."""
+    return build_dir() / library_name(name)
+
+
+def find_library(name: str) -> pathlib.Path | None:
+    """The first library of ``csrc/<name>.cu`` in :func:`candidate_build_dirs`
+    that this process may load (directory and file owned by this user or
+    root, neither group- nor other-writable), or None."""
+    for candidate in candidate_build_dirs():
+        path = candidate / library_name(name)
+        try:
+            if path.is_file() and not (_unsafe(candidate, owners=(0,))
+                                       or _unsafe(path, owners=(0,))):
+                return path
+        except OSError:
+            continue
+    return None
+
+
+def sources() -> list[str]:
+    """The name of every ``csrc/*.cu``."""
+    return sorted(path.stem for path in CSRC.glob("*.cu"))
+
+
+def _up_to_date(path: pathlib.Path) -> bool:
+    """Whether ``path`` is a built library that only this user could have
+    written."""
+    try:
+        return path.is_file() and _unsafe(path) is None
+    except OSError:
+        return False
+
+
+def build(names: list[str] | None = None, directory: pathlib.Path | None = None
+          ) -> dict[str, float]:
+    """Compile every library in ``names`` (default: all) missing from
+    ``directory`` (default: :func:`build_dir`; one this user owns), one nvcc
     per source, all started together. Returns seconds per library built
-    (an up-to-date library is not rebuilt and is absent from the result).
-    Each build writes to a private temporary name and is renamed into
-    place, so concurrent processes never load a half-written file."""
+    (an up-to-date library is not rebuilt and is absent from the result; a
+    library another user could have written is rebuilt over). Each build
+    writes to a private temporary name, made writable by this user only,
+    and is renamed into place, so concurrent processes never load a
+    half-written file."""
     names = list(SIGNATURES) if names is None else names
-    missing = [name for name in names if not library_path(name).exists()]
+    if directory is None:
+        directory = build_dir()
+    else:
+        directory.mkdir(mode=0o700, parents=True, exist_ok=True)
+        unsafe = _unsafe(directory)
+        if unsafe:
+            raise KernelBuildError(f"will not build into {directory}: {unsafe}")
+    missing = [name for name in names if not _up_to_date(directory / library_name(name))]
     if not missing:
         return {}
     nvcc = _nvcc()
     pending = {}
     for name in missing:
-        out = library_path(name)
+        out = directory / library_name(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
@@ -195,6 +255,7 @@ def build(names: list[str] | None = None) -> dict[str, float]:
             tmp.unlink(missing_ok=True)
             failures.append(f"{name}: nvcc rc={proc.returncode}\n{stderr[-4000:]}")
             continue
+        os.chmod(tmp, 0o755)
         os.replace(tmp, out)
     if failures:
         raise KernelBuildError("\n".join(failures))
@@ -202,19 +263,26 @@ def build(names: list[str] | None = None) -> dict[str, float]:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (ptxas register/shared-memory report) for ``name``."""
-    log = library_path(name).with_suffix(".log")
+    """nvcc's output (ptxas register/shared-memory report) for ``name``,
+    kept beside the library this process would load."""
+    log = (find_library(name) or library_path(name)).with_suffix(".log")
     return log.read_text(encoding="utf-8") if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu``: the first one
+    :func:`find_library` finds, else a new build. A library another user
+    could have written is never loaded."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    path = library_path(name)
-    if not path.exists():
+    path = find_library(name)
+    if path is None:
         build([name])
+        path = find_library(name)
+        if path is None:
+            raise KernelBuildError(f"the build of {name} left no library this user may load "
+                                   f"({library_path(name)})")
     lib = ctypes.CDLL(str(path))
     for symbol, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, symbol)
@@ -233,3 +301,27 @@ def check(rc: int, what: str) -> None:
     """Raise :class:`KernelLaunchError` for a non-zero cudaError_t."""
     if rc != 0:
         raise KernelLaunchError(f"{what}: CUDA error {rc}")
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m tpu_cc_manager_torch.ops._build",
+        description="Build every csrc/*.cu kernel library for sm_90a with nvcc.")
+    parser.add_argument("--dir", type=pathlib.Path, default=None,
+                        help="build into DIR (default: the first writable build directory)")
+    args = parser.parse_args(argv)
+    directory = args.dir or build_dir()
+    try:
+        built = build(sources(), directory)
+    except KernelBuildError as e:
+        print(f"KernelBuildError: {e}", file=sys.stderr)
+        return 1
+    for name in sources():
+        took = f"{built[name]:.3f} s" if name in built else "up to date"
+        print(f"{name}: {took} -> {directory / library_name(name)}")
+    print(json.dumps({"dir": str(directory), "seconds": built}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

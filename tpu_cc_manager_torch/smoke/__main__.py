@@ -22,8 +22,8 @@ def main(argv: list[str] | None = None) -> int:
                    "config for llama (e.g. tiny, 500m, llama3-8b) or resnet (tiny, "
                    "resnet50)")
     p.add_argument("--kernel", default=None, choices=["torch", "cuda"],
-                   help="matmul only: 'cuda' runs the hand-written K1 kernel "
-                   "(ops/matmul.py), 'torch' PyTorch's own matmul")
+                   help="matmul only: 'cuda' (the default) runs the hand-written K1 "
+                   "kernel (ops/matmul.py), 'torch' PyTorch's own matmul")
     p.add_argument("--batch", type=int, default=None,
                    help="llama and resnet only: batch override (resnet: the global "
                    "batch)")

@@ -2,18 +2,20 @@
 
 Port of ``tpu_cc_manager/smoke/matmul.py``:
 
-- bf16 operands with an f32 result; ``kernel='torch'`` is the stock path
-  (``torch.mm`` with ``out_dtype=float32`` on the card), ``kernel='cuda'``
-  the hand-written K1 kernel (``ops/matmul.py``), the port of ``'pallas'``;
+- bf16 operands with an f32 result; ``kernel='cuda'``, the default, is the
+  hand-written K1 kernel (``ops/matmul.py``), the port of ``'pallas'``, and
+  ``kernel='torch'`` PyTorch's own matmul (``torch.mm`` with
+  ``out_dtype=float32`` on the card), the port of ``'xla'``;
 - a dependency-chained loop, renormalised by ``1/sqrt(n)`` each step, timed
   differentially (median T(4N) - median T(N), medians of 5), each timing
   ending in ``torch.cuda.synchronize()`` and a host readback;
 - the identity and row-sum oracles with the JAX package's thresholds;
-- ``kernel='torch'`` runs on every visible card, each card taking its rows
-  of A (the size rounds to a multiple of 128 rows per card), as the JAX
-  smoke shards rows over ``jax.devices()``; every card must pass its
-  oracles. ``kernel='cuda'`` runs on one card (``devices: 1``, beside
-  ``visible_devices``), as the JAX ``'pallas'`` kernel does.
+- either kernel runs on every visible card, each card taking its rows of
+  A (the size rounds to a multiple of 128 rows per card, which K1's tile
+  divides), as the JAX smoke shards rows over ``jax.devices()``; every
+  card must pass its oracles. The JAX ``'pallas'`` kernel runs on one
+  device; K1 does not, so that the agent's verify smoke, which runs the
+  default, checks every card of the node with the kernel the node ships.
 """
 
 from __future__ import annotations
@@ -43,12 +45,11 @@ KERNELS = ("torch", "cuda")
 
 
 def run(size: int | None = None, iters: int | None = None, seed: int = 0,
-        kernel: str = "torch", device: str = "cuda", n_devices: int | None = None) -> dict:
-    """``kernel='torch'`` multiplies with PyTorch's own matmul on every
-    visible card (``n_devices`` overrides the count), each card taking its
-    rows of A as the JAX smoke shards rows over ``jax.devices()``;
-    ``'cuda'`` with the K1 kernel (its plain version on the CPU) on one
-    card, as the JAX ``'pallas'`` kernel runs on one device."""
+        kernel: str = "cuda", device: str = "cuda", n_devices: int | None = None) -> dict:
+    """``kernel='cuda'`` multiplies with the K1 kernel (its plain version on
+    the CPU), ``'torch'`` with PyTorch's own matmul, on every visible card
+    (``n_devices`` overrides the count), each card taking its rows of A as
+    the JAX smoke shards rows over ``jax.devices()``."""
     if kernel not in KERNELS:
         raise SmokeConfigError(f"unknown matmul kernel {kernel!r} (have {list(KERNELS)})")
     if size is not None and not isinstance(size, int):
@@ -56,7 +57,7 @@ def run(size: int | None = None, iters: int | None = None, seed: int = 0,
     dev = resolve_device(device)
     backend = dev.type
     visible = device_count(dev)
-    count = 1 if kernel == "cuda" else device_count(dev, n_devices)
+    count = device_count(dev, n_devices)
     if size is None:
         size = 4096 if backend == "cuda" else 256
     if iters is None:
