@@ -213,19 +213,43 @@ counts at 0 just before it and read just after:
    log must show the CC ready state set once after the attestation, and
    SIGTERM exit 0;
    (c) the manifest's ``h100`` backend over phase 15's stand-ins, the agent
-   on a thread: the flip to on must fail closed at the attestation, the
-   node labelled failed with its reason, the agent alive, NVML's ready
-   state and CC state unchanged and no set call (the setter is refused);
-20. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+   on a thread, its spans in a trace file: the flip to on must fail closed
+   at the attestation, the node labelled failed with its reason, the agent
+   alive, NVML's ready state and CC state unchanged and no set call (the
+   setter is refused), and the trace must hold one ``reset.chip`` span per
+   GPU under the reconcile's trace id; once as the card answers (NVML
+   refuses the report, CC off: no quote, no ``attest.verify``), once with a
+   stand-in report, unsigned and with no certificate chain, which the
+   verifier must refuse in one ``attest.verify`` span with problems >= 1;
+20. a training job through a CC flip by the drain handshake
+   (``job_through_flip``): against ``hack/mock_apiserver.py``, a job
+   process (``python -m tpu_cc_manager_torch.ccmanager.localrig job``)
+   trains Llama-3.2-1B at its published width and depth (phase 7's
+   configuration, seed and batch) and holds at step 3; the sidecar
+   ``python -m tpu_cc_manager_torch.ctl drain-subscribe`` (its
+   ``--on-drain`` asks the job to checkpoint through ``TrainCheckpointer``
+   and waits for its exit, its ``--on-resume`` starts a job that restores
+   the newest checkpoint and trains to step 8); the agent CLI with the fake
+   device layer, its matmul smoke, ``CC_DRAIN_ACK_TIMEOUT_S`` and
+   ``CC_TRACE_FILE``. The desired label is set to on. The checkpoint must
+   land before any component pause and the job must have exited before the
+   first reset (the trace file's spans), the node must be on and ready
+   within the 90 s budget, one verify smoke with phase 5's K1 count on
+   every card, all ``sm90``, the losses of both jobs must be phase 7's at
+   every printed digit, each step must launch K2/K3/K4 once per layer on
+   ``sm90``, and ``attest.verify`` must sit under the reconcile's trace id.
+   The checkpoint's bytes, save and restore seconds, the handshake's wait,
+   drain->ready with its phase seconds and the job's downtime are printed;
+21. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape for the variants the paths launch (the f32 K1 and the simt
    K3 and K4 are checked in phases 3-4 but run on no path; the ResNet and
    ring paths run none of K1-K4: the ResNet's convolutions are cuDNN's, as
    the JAX package's are XLA's, and the ring's blocks are plain PyTorch, as
    the JAX ring's are XLA einsums), then the ``nvidia-smi`` line;
-21. last line ``{"ok": true, "device": {...}}``.
+22. last line ``{"ok": true, "device": {...}}``.
 
-Before phases 12 and 13, which start processes on this card, the script
-prints what its own process still holds there.
+Before phases 12, 13 and 20, which start processes on this card, the
+script prints what its own process still holds there.
 
 Any failed phase exits non-zero before the last line. Without CUDA, or run
 outside the repository, it fails at once.
@@ -362,6 +386,19 @@ FED_LABEL = ("pool", "chip-smoke-fed")
 FED_KILL_REGION = "r1"
 FED_KILL_POINT = "federation-boundary"
 FED_BUDGET = 1
+
+# Phase 20, a training job through a CC flip on the card: Llama-3.2-1B at
+# its published width and depth trains phase 7's batch from phase 7's seed
+# beside the agent CLI; the sidecar ``ctl drain-subscribe`` asks it to
+# checkpoint when the agent drains the node, and starts a job that restores
+# the checkpoint once the node is back. The first job holds at
+# ``JOB_HOLD_AT`` until the drain; the resumed one trains to phase 7's last
+# step, and its losses must be phase 7's.
+JOB_SUBSCRIBER = "train"
+JOB_HOLD_AT = 3
+JOB_ACK_TIMEOUT_S = 300  # the agent's CC_DRAIN_ACK_TIMEOUT_S: above the save
+JOB_TIMEOUT_S = 600  # a job's start, restore and steps, or its hold
+JOB_SUB_POLL_S = 0.2  # the sidecar's drain poll (idle polls 5x)
 
 
 def fail(message: str) -> None:
@@ -2982,11 +3019,16 @@ def daemonset_fake_flip(image, app, smoke_k1: int, cards: int,
 
 class GuardedNvml(FlipNvml):
     """Phase 15's NVML, with the CC ready state's setter refused and
-    recorded: phase 19 never sets the real card's ready state."""
+    recorded: phase 19 never sets the real card's ready state. With
+    ``standin_report`` each GPU answers the attestation calls with a
+    stand-in SPDM report bound to the challenge, unsigned, and no
+    certificate chain (the card, CC off, has none to give), so that a quote
+    reaches the verifier, which must refuse it."""
 
-    def __init__(self, *args) -> None:
+    def __init__(self, *args, standin_report: bool = False) -> None:
         super().__init__(*args)
         self.set_calls = []
+        self.standin_report = standin_report
 
     def set_gpus_ready_state(self, state: int) -> None:
         from tpu_cc_manager_torch.gpudev.contract import GpuError
@@ -2994,16 +3036,34 @@ class GuardedNvml(FlipNvml):
         self.set_calls.append(state)
         raise GpuError("chip_smoke never sets the card's CC ready state")
 
+    def attestation_report(self, handle, nonce: bytes) -> bytes:
+        from tpu_cc_manager_torch.gpudev import attestation
 
-def daemonset_h100_flip(torch, directory) -> dict:
+        if not self.standin_report:
+            return self.real.attestation_report(handle, nonce)
+        record = b"stand-in measurement block"
+        request = bytes([0x11, attestation.SPDM_GET_MEASUREMENTS, 0, 0]) + nonce + b"\0"
+        response = (bytes([0x11, attestation.SPDM_MEASUREMENTS, 0, 0, 1])
+                    + len(record).to_bytes(3, "little") + record + bytes(32)
+                    + (0).to_bytes(2, "little") + bytes(attestation.SIGNATURE_LEN))
+        return request + response
+
+    def attestation_cert_chain(self, handle) -> bytes:
+        return b"" if self.standin_report else self.real.attestation_cert_chain(handle)
+
+
+def daemonset_h100_flip(torch, directory, standin_report: bool = False) -> dict:
     """Phase 19 (c): the manifest's backend, ``h100``, over phase 15's
     stand-ins (``gpudev/standin_admin.py``, a stand-in sysfs tree where the
     machine has no PCI bus, NVML's CC state following the stand-in), with
     the agent (``CCManager.watch_and_apply`` on a thread, the manager's own
-    verifier) configured from the manifest's smoke env. The flip to on must
-    fail closed at the attestation (NVML refuses the report with the card's
-    CC off), the node labelled failed with its reason and the agent alive,
-    and the card's ready state unchanged with no set call."""
+    verifier, its spans in a trace file) configured from the manifest's
+    smoke env. The flip to on must fail closed at the attestation (NVML
+    refuses the report with the card's CC off; with ``standin_report`` the
+    verifier refuses ``GuardedNvml``'s stand-in report), the node labelled
+    failed with its reason and the agent alive, and the card's ready state
+    unchanged with no set call. Returns what the phase checks, the trace
+    file's spans among it."""
     import threading
 
     from tpu_cc_manager_torch import deploy
@@ -3038,7 +3098,8 @@ def daemonset_h100_flip(torch, directory) -> dict:
                                   by_bdf, torch_uuid,
                                   any(f.kind == "nvswitch" for f in found),
                                   pci.pci_bus_present("/sys"))
-    gpu.nvml = GuardedNvml(str(admin_dir), torch_uuid)
+    gpu.nvml = GuardedNvml(str(admin_dir), torch_uuid, standin_report=standin_report)
+    trace = directory / "trace.jsonl"
     smokes = []
 
     def smoke(workload: str) -> dict:
@@ -3052,7 +3113,7 @@ def daemonset_h100_flip(torch, directory) -> dict:
         api=kube, backend=NodeBackend(gpu), node_name=AGENT_NODE, default_mode=MODE_OFF,
         operator_namespace=env["OPERATOR_NAMESPACE"], evict_components=True,
         eviction_poll_interval_s=0.02, smoke_workload=env["CC_SMOKE_WORKLOAD"],
-        smoke_runner=smoke, metrics=registry, journal=Journal(trace_file=""),
+        smoke_runner=smoke, metrics=registry, journal=Journal(trace_file=str(trace)),
         watch_timeout_s=1, reconnect_delay_s=0.0,
         readiness_file=str(directory / "ready"), state_dir=str(directory / "state"))
     stop = threading.Event()
@@ -3081,7 +3142,30 @@ def daemonset_h100_flip(torch, directory) -> dict:
             "smokes": smokes, "ready_before": start["ready"], "ready_after": end["ready"],
             "state_before": start["state"], "state_after": end["state"],
             "set_calls": gpu.nvml.set_calls,
-            "ops": [op for op, _ in gpu.op_log]}
+            "ops": [op for op, _ in gpu.op_log], "gpus": len(by_bdf),
+            "spans": [json.loads(line) for line in trace.read_text().splitlines()]}
+
+
+def h100_span_problems(h100: dict, standin_report: bool) -> list[str]:
+    """Phase 19 (c)'s spans: under the flip's reconcile trace, one
+    ``reset.chip`` per GPU, and one ``attest.verify`` with problems when a
+    quote reached the verifier (none when NVML refused the report)."""
+    reconciles = [s for s in h100["spans"] if s["name"] == "reconcile"
+                  and s["attributes"].get("mode") == "on"]
+    if len(reconciles) != 1:
+        return [f"{len(reconciles)} reconciles to on in the trace file, want 1"]
+    in_trace = [s for s in h100["spans"] if s["trace_id"] == reconciles[0]["trace_id"]]
+    problems = []
+    chips = sorted(s["attributes"]["chip"] for s in in_trace if s["name"] == "reset.chip")
+    if chips != list(range(h100["gpus"])):
+        problems.append(f"reset.chip spans for devices {chips}, want one per GPU "
+                        f"({h100['gpus']})")
+    verify = [s["attributes"].get("problems") for s in in_trace if s["name"] == "attest.verify"]
+    if standin_report and (len(verify) != 1 or not verify[0]):
+        problems.append(f"attest.verify problems {verify}, want one span with problems >= 1")
+    if not standin_report and verify:
+        problems.append(f"attest.verify {verify} with no quote to verify")
+    return problems
 
 
 def check_daemonset_agent(torch, smi_line: str, smoke_k1: int) -> dict:
@@ -3129,33 +3213,270 @@ def check_daemonset_agent(torch, smi_line: str, smoke_k1: int) -> dict:
     if run["problems"]:
         fail("daemonset agent: " + "; ".join(run["problems"]) + f": {run['log'][-3000:]}")
 
-    # --- (c) the manifest's h100 backend over the stand-ins: fails closed ---
-    directory = image / "h100"
-    h100 = daemonset_h100_flip(torch, directory)
-    say(f"daemonset [h100]: flip -> on failed={h100['failed']} in {h100['wall_s']:.3f} s at "
-        f"{h100['failed_phases']} (phases {json.dumps(h100['phase_s'])}), reason "
-        f"{h100['reason']!r}, agent alive {h100['alive']}; NVML ready state before "
-        f"{h100['ready_before']}, after {h100['ready_after']}; set calls {h100['set_calls']}; "
-        f"backend ops {h100['ops']}")
-    problems = []
-    if not (h100["settled"] and h100["failed"] and h100["alive"]):
-        problems.append(f"the flip did not fail with the agent alive: {h100['labels']}")
-    if h100["failed_phases"] != ["attest"] or h100["smokes"]:
-        problems.append(f"the flip failed at {h100['failed_phases']}, not at its attestation "
-                        f"before the smoke ({h100['smokes']})")
-    if not h100["reason"]:
-        problems.append("the failed node carries no reason")
-    if h100["ready_after"] != h100["ready_before"] or h100["state_after"] != \
-            h100["state_before"]:
-        problems.append("the card's CC ready state or CC state changed")
-    if h100["set_calls"] or "set_ready" in h100["ops"]:
-        problems.append("the ready state was set without a verified quote")
-    if problems:
-        fail("daemonset [h100]: " + "; ".join(problems))
+    # --- (c) the manifest's h100 backend over the stand-ins: fails closed, once
+    # at NVML's refusal and once at the verifier's ---
+    for standin_report in (False, True):
+        tag = "h100, stand-in report" if standin_report else "h100"
+        h100 = daemonset_h100_flip(torch, image / "h100", standin_report)
+        spans = [(s["name"], s["attributes"].get("chip", s["attributes"].get("problems")))
+                 for s in h100["spans"] if s["name"] in ("reset.chip", "attest.verify")]
+        say(f"daemonset [{tag}]: flip -> on failed={h100['failed']} in {h100['wall_s']:.3f} s "
+            f"at {h100['failed_phases']} (phases {json.dumps(h100['phase_s'])}), reason "
+            f"{h100['reason']!r}, agent alive {h100['alive']}; NVML ready state before "
+            f"{h100['ready_before']}, after {h100['ready_after']}; set calls "
+            f"{h100['set_calls']}; backend ops {h100['ops']}; device spans (chip or problems) "
+            f"{spans}")
+        problems = h100_span_problems(h100, standin_report)
+        if not (h100["settled"] and h100["failed"] and h100["alive"]):
+            problems.append(f"the flip did not fail with the agent alive: {h100['labels']}")
+        if h100["failed_phases"] != ["attest"] or h100["smokes"]:
+            problems.append(f"the flip failed at {h100['failed_phases']}, not at its "
+                            f"attestation before the smoke ({h100['smokes']})")
+        if not h100["reason"]:
+            problems.append("the failed node carries no reason")
+        if h100["ready_after"] != h100["ready_before"] or h100["state_after"] != \
+                h100["state_before"]:
+            problems.append("the card's CC ready state or CC state changed")
+        if h100["set_calls"] or "set_ready" in h100["ops"]:
+            problems.append("the ready state was set without a verified quote")
+        if problems:
+            fail(f"daemonset [{tag}]: " + "; ".join(problems))
     say(f"daemonset: phase wall {time.perf_counter() - t0:.3f} s")
     make_writable(image)
     shutil.rmtree(image, ignore_errors=True)
     return counts
+
+
+def job_through_flip(workdir, device: str = "cuda", size: str = "llama3_2_1b",
+                     batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                     until: int = TRAIN_STEPS, hold_at: int = JOB_HOLD_AT,
+                     reference: list[float] | None = None,
+                     agent_env: dict | None = None) -> dict:
+    """Phase 20: a training job rides through a CC flip beside the agent
+    (``ccmanager/localrig.py``). Against the mock apiserver: the job
+    (``localrig job``) trains to ``hold_at`` and holds; the sidecar
+    ``python -m tpu_cc_manager_torch.ctl drain-subscribe`` registers with
+    ``localrig request-checkpoint`` as its ``--on-drain`` command and a
+    resumed job (``--resume``) as its ``--on-resume``; the agent CLI (the fake
+    device layer, its matmul verify smoke, ``CC_DRAIN_ACK_TIMEOUT_S`` and
+    ``CC_TRACE_FILE`` set) flips the node to on. Without ``reference`` an
+    uninterrupted job to ``until`` runs first and its losses are the
+    reference. Returns the jobs' events, the agent's spans, phase seconds and
+    log, and the walls."""
+    import pathlib
+    import shutil
+    import signal
+
+    from tpu_cc_manager_torch.ccmanager import localrig
+    from tpu_cc_manager_torch.drain.handshake import ACTIVE, subscriber_label
+    from tpu_cc_manager_torch.labels import (
+        CC_MODE_LABEL,
+        CC_MODE_STATE_LABEL,
+        CC_READY_STATE_LABEL,
+    )
+    from tpu_cc_manager_torch.utils.launch import free_port
+    from tpu_cc_manager_torch.utils.poll import poll_until
+
+    workdir = pathlib.Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    job_args = ["--size", size, "--batch", str(batch), "--seq", str(seq), "--until", str(until),
+                "--device", device]
+    job_env = {"OMP_NUM_THREADS": "1"} if device == "cpu" else {}
+    run = {"reference_run": reference is None}
+    trace = workdir / "trace.jsonl"
+    port = free_port()
+    job_dir = workdir / "job"
+    with localrig.LocalRig(str(workdir / "rig")) as rig:
+        def events_of(job_dir, proc, want: str) -> list[dict]:
+            """``job_dir``'s events once one is ``want``; fails naming
+            ``proc``'s log if it exits non-zero first or none comes."""
+            if not poll_until(lambda: proc.poll() not in (None, 0) or any(
+                    e["event"] == want for e in localrig.job_events(str(job_dir))),
+                    JOB_TIMEOUT_S, 0.1) or proc.poll() not in (None, 0):
+                fail(f"job: no {want!r} event from {job_dir}: rc {proc.poll()}: "
+                     f"{rig.log_of(proc)[-3000:]}")
+            return localrig.job_events(str(job_dir))
+
+        if reference is None:
+            ref_dir = workdir / "reference"
+            events = events_of(ref_dir, rig.start_job(str(ref_dir), job_args, env=job_env),
+                               "done")
+            run["reference_events"] = events
+            reference = [e["loss"] for e in events if e["event"] == "step"]
+            shutil.rmtree(ref_dir / "ckpt", ignore_errors=True)
+        run["reference"] = reference
+        job = rig.start_job(str(job_dir), [*job_args, "--hold-at", str(hold_at)], env=job_env)
+        sidecar = rig.start_ctl(
+            ["drain-subscribe", "--node", localrig.NODE, "--job", JOB_SUBSCRIBER,
+             "--on-drain", localrig.request_checkpoint_cmd(str(job_dir)),
+             "--on-resume", localrig.job_cmd(str(job_dir), [*job_args, "--resume"]),
+             "--poll-interval", str(JOB_SUB_POLL_S)], env=job_env)
+        agent = rig.start_agent(
+            ["--gpu-backend", "fake", "--smoke-workload", "matmul"], metrics_port=port,
+            env={"CC_DRAIN_ACK_TIMEOUT_S": str(JOB_ACK_TIMEOUT_S), "CC_TRACE_FILE": str(trace),
+                 **(agent_env or {})})
+        # The host is not CC capable, so the agent first applies its default, off.
+        if not rig.await_labels({CC_MODE_STATE_LABEL: "off"}, 60):
+            fail(f"job: the agent made no initial reconcile: {rig.log_of(agent)[-3000:]}")
+        if not rig.await_labels({subscriber_label(JOB_SUBSCRIBER): ACTIVE}, 60):
+            fail(f"job: the sidecar did not register: {rig.log_of(sidecar)[-3000:]}")
+        events_of(job_dir, job, "held")
+        t0 = time.perf_counter()
+        rig.set_label(CC_MODE_LABEL, "on")
+        run["ready"] = rig.await_labels({CC_MODE_STATE_LABEL: "on",
+                                         CC_READY_STATE_LABEL: "true"}, AGENT_FLIP_TIMEOUT_S)
+        run["drain_to_ready_s"] = time.perf_counter() - t0
+        run["phases"], _ = localrig.await_phases(port, "on", AGENT_PHASES, 30)
+        if run["ready"]:
+            events_of(job_dir, sidecar, "done")
+        run["events"] = localrig.job_events(str(job_dir))
+        run["job_rc"] = job.poll()
+        run["sidecar_alive"] = sidecar.poll() is None
+        agent.send_signal(signal.SIGTERM)
+        try:
+            run["sigterm_rc"] = agent.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            run["sigterm_rc"] = None
+        run["log"] = rig.log_of(agent)
+        run["sidecar_log"] = rig.log_of(sidecar)
+    run["spans"] = ([json.loads(line) for line in trace.read_text().splitlines()]
+                    if trace.exists() else [])
+    run["smokes"] = smoke_results_in(run["log"])
+    shutil.rmtree(workdir, ignore_errors=True)
+    return run
+
+
+def job_steps(run: dict) -> tuple[list[dict], list[dict]]:
+    """The step events of the first job and of the resumed one."""
+    first_pid = next(e["pid"] for e in run["events"] if e["event"] == "held")
+    steps = [e for e in run["events"] if e["event"] == "step"]
+    return ([e for e in steps if e["pid"] == first_pid],
+            [e for e in steps if e["pid"] != first_pid])
+
+
+def job_flip_problems(run: dict, hold_at: int, until: int, n_layers: int, smoke_k1: int,
+                      cards: int, device: str = "cuda") -> list[str]:
+    """What phase 20 requires of a ``job_through_flip`` run: the checkpoint
+    before any component pause, the job gone before the first reset, the
+    node on and ready within the budget, one verify smoke (K1 on every card
+    with ``smoke_k1`` sm90 launches on the card), the resumed losses equal
+    to the reference's at every printed digit, each step's K2/K3/K4 once
+    per layer on their sm90 kernels (none on the CPU, where the wrappers run
+    their plain versions), and ``attest.verify`` under the reconcile's
+    trace. Returns the problems found."""
+    problems = []
+    events = run["events"]
+    saved = [e for e in events if e["event"] == "checkpoint"]
+    exited = [e for e in events if e["event"] == "exited"]
+    restored = [e for e in events if e["event"] == "restored"]
+    if [e["step"] for e in saved] != [hold_at] or [e["step"] for e in restored] != [hold_at]:
+        problems.append(f"checkpoints {[e['step'] for e in saved]} and restores "
+                        f"{[e['step'] for e in restored]}, want one of each at step {hold_at}")
+    if [e["saved"] for e in exited] != [True]:
+        problems.append(f"the checkpoint request saw {exited}, want one exit after a save")
+    first, resumed = job_steps(run) if any(e["event"] == "held" for e in events) else ([], [])
+    printed = [round(x, 6) for x in run["reference"]]
+    got = [round(e["loss"], 6) for e in first + resumed]
+    if [e["step"] for e in first + resumed] != list(range(1, until + 1)) or got != printed:
+        problems.append(f"the job's losses {got} (steps "
+                        f"{[e['step'] for e in first + resumed]}) are not the uninterrupted "
+                        f"run's {printed}")
+    n = n_layers if device == "cuda" else 0
+    want = {"K1": 0, "K2": n, "K3": n, "K4": n, "K1/sm90": 0, "K1/simt": 0, "K2/sm90": n,
+            "K2/simt": 0, "K3/sm90": n, "K3/simt": 0, "K4/sm90": n, "K4/simt": 0}
+    wrong = [e["step"] for e in first + resumed if e["launches"] != want]
+    if wrong:
+        problems.append(f"steps {wrong} did not launch {want}")
+    spans = run["spans"]
+    reconciles = [s for s in spans if s["name"] == "reconcile"
+                  and s["attributes"].get("mode") == "on"]
+    if len(reconciles) != 1:
+        problems.append(f"{len(reconciles)} reconciles to on in the trace file, want 1")
+    else:
+        in_trace = [s for s in spans if s["trace_id"] == reconciles[0]["trace_id"]]
+        starts = {name: min((s["start_ts"] for s in in_trace if s["name"] == name), default=None)
+                  for name in ("drain.pause_components", "reset")}
+        if None in starts.values() or not saved or not exited:
+            problems.append(f"no pause or reset span, checkpoint or exit to order: {starts}")
+        else:
+            if not saved[0]["t"] < starts["drain.pause_components"]:
+                problems.append("the checkpoint did not land before the components' pause")
+            if not exited[0]["t"] < starts["reset"]:
+                problems.append("the job had not exited before the backend's first reset")
+        if not any(s["name"] == "attest.verify" for s in in_trace):
+            problems.append("no attest.verify span under the reconcile's trace id")
+        if not any(s["name"] == "drain.handshake" for s in in_trace):
+            problems.append("no drain.handshake span: the agent did not wait for the job")
+    if not run["ready"]:
+        problems.append(f"no flip to on in {AGENT_FLIP_TIMEOUT_S} s")
+    elif run["drain_to_ready_s"] >= AGENT_BUDGET_S:
+        problems.append(f"drain->ready {run['drain_to_ready_s']:.3f} s is over the "
+                        f"{AGENT_BUDGET_S:g} s budget")
+    if len(run["smokes"]) != 1:
+        problems.append(f"{len(run['smokes'])} verify smokes logged, want 1")
+    for res in run["smokes"]:
+        k1 = res.get("kernel_launches_by_variant", {}).get("K1", {})
+        want_k1 = smoke_k1 if device == "cuda" else 0
+        if not res.get("ok") or k1.get("sm90", 0) != want_k1 or k1.get("simt", 0) or \
+                res.get("backend") != device or res.get("devices") != cards:
+            problems.append(f"the verify smoke was not ok with {want_k1} sm90 K1 launches on "
+                            f"{cards} {device} device(s): ok={res.get('ok')} K1 {k1} on "
+                            f"{res.get('devices')} {res.get('backend')}")
+    if not run["sidecar_alive"] or run["sigterm_rc"] != 0:
+        problems.append(f"the sidecar alive {run['sidecar_alive']}, the agent's SIGTERM exit "
+                        f"{run['sigterm_rc']}")
+    return problems
+
+
+def check_job_through_flip(torch, smi_line: str, smoke_k1: int,
+                           reference: list[float]) -> dict:
+    """Phase 20 on the card (see ``job_through_flip``); ``reference`` is
+    phase 7's losses. Returns the launch counts of the jobs' steps and of
+    the verify smoke."""
+    import pathlib
+
+    from tpu_cc_manager_torch.models.llama import LlamaConfig
+
+    t0 = time.perf_counter()
+    report_memory(torch, "job through a flip")
+    cards = torch.cuda.device_count()
+    n_layers = LlamaConfig.llama3_2_1b().n_layers
+    workdir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_job"
+    run = job_through_flip(workdir, reference=reference,
+                           agent_env={"GPU_CC_FAKE_NUM_GPUS": str(cards),
+                                      "GPU_CC_FAKE_NUM_SWITCHES": "0"})
+    events = run["events"]
+    first, resumed = job_steps(run)
+    saved = next((e for e in events if e["event"] == "checkpoint"), {})
+    restored = next((e for e in events if e["event"] == "restored"), {})
+    handshake = [s["seconds"] for s in run["spans"] if s["name"] == "drain.handshake"]
+    downtime = resumed[0]["t"] - first[-1]["t"] if first and resumed else None
+    say(f"job: Llama-3.2-1B, {n_layers} layers, batch {TRAIN_BATCH}x{TRAIN_SEQ}, held at step "
+        f"{JOB_HOLD_AT}; losses before the flip {[round(e['loss'], 6) for e in first]}, "
+        f"after {[round(e['loss'], 6) for e in resumed]}; the uninterrupted run's "
+        f"({'this phase' if run['reference_run'] else 'phase 7'}) "
+        f"{[round(x, 6) for x in run['reference']]}")
+    say(f"job: checkpoint {saved.get('bytes')} bytes, save {saved.get('save_s')} s, restore "
+        f"{restored.get('restore_s')} s; handshake wait inside drain {handshake} s; "
+        f"drain->ready {run['drain_to_ready_s']:.3f} s (budget {AGENT_BUDGET_S:g} s; "
+        f"{smi_line}); tpu_cc_phase_seconds {json.dumps(run['phases'])}; the job's downtime "
+        f"(its last step before the request to its first after the resume) {downtime} s")
+    launches = {}
+    for e in first + resumed:
+        launches = {k: launches.get(k, 0) + v for k, v in e["launches"].items()}
+    for res in run["smokes"]:
+        counts = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
+        say(f"job: verify smoke ok={res['ok']} devices={res['devices']} K1 "
+            f"sm90={counts.get('K1/sm90')} simt={counts.get('K1/simt')}")
+        launches = {k: launches.get(k, 0) + counts.get(k, 0) for k in launches}
+    say(f"job: launches over {len(first) + len(resumed)} steps and the verify smoke "
+        f"{launches}")
+    problems = job_flip_problems(run, JOB_HOLD_AT, TRAIN_STEPS, n_layers, smoke_k1, cards)
+    if problems:
+        fail("job through a flip: " + "; ".join(problems) + f": {run['log'][-2000:]} "
+             f"{run['sidecar_log'][-2000:]}")
+    say(f"job: phase wall {time.perf_counter() - t0:.3f} s")
+    return launches
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3356,7 +3677,11 @@ def main(argv: list[str] | None = None) -> int:
     paths["daemonset agent verify smoke"] = check_daemonset_agent(
         torch, smi_line, paths["matmul smoke"]["K1"])
 
-    # --- 20. kernel summary -----------------------------------------------------
+    # --- 20. a training job through a CC flip via the drain handshake ------------
+    paths["job through a flip"] = check_job_through_flip(
+        torch, smi_line, paths["matmul smoke"]["K1"], train["losses"])
+
+    # --- 21. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -3382,7 +3707,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 21. last line ------------------------------------------------------------
+    # --- 22. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

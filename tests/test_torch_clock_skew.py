@@ -1,0 +1,9 @@
+"""Skew-proof fencing of the rollout lease on the port: the cases of
+``tests/test_clock_skew.py``, run through
+``test_torch_fleet_sides.port_suite``, over the port's ``FakeKube``. Every
+case runs.
+"""
+
+from test_torch_fleet_sides import port_suite
+
+port_suite(globals(), "test_clock_skew")

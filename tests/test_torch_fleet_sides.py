@@ -39,6 +39,9 @@ SEAMS = {("tpu_cc_manager.tpudev.fake", "FakeTpuBackend"): (__name__, "FakeNode"
          ("tpu_cc_manager.tpudev", "attestation"): ("tpu_cc_manager_torch.gpudev", "attestation"),
          ("tpu_cc_manager.tpudev.contract", "SliceTopology"):
              ("tpu_cc_manager_torch.ccmanager.node", "SliceView")}
+#: JAX modules whose port lives under another path: every name a suite
+#: imports from one (at the top or inside a test) is read from the port's.
+SEAM_MODULES = {"tpu_cc_manager.tpudev.attestation": "tpu_cc_manager_torch.gpudev.attestation"}
 #: A JAX package path and its port's, for suites that name files of the
 #: package in strings (``paths=True``); the longest prefix first. The JAX
 #: agent's DaemonSet manifest is the H100 one's counterpart.
@@ -79,9 +82,11 @@ class FakeNode(NodeBackend):
 
     @property
     def committed(self) -> dict[int, str]:
-        """Each GPU's committed mode, by index, in label modes."""
+        """Each GPU's committed mode, by index, in label modes. Read from
+        the fake's state, as the JAX fake's ``committed`` is: no contract
+        call, so a fault armed for the manager stays armed."""
         return {d.index: to_label_mode(self.gpu._mode_of(d.index))
-                for d in self.gpu.discover().devices}
+                for d in self.gpu._topology.devices}
 
 
 def _port_import(node: ast.ImportFrom) -> list[ast.ImportFrom]:
@@ -90,6 +95,8 @@ def _port_import(node: ast.ImportFrom) -> list[ast.ImportFrom]:
     module = node.module or ""
     if module != "tpu_cc_manager" and not module.startswith("tpu_cc_manager."):
         return [node]
+    if module in SEAM_MODULES:
+        return [ast.copy_location(ast.ImportFrom(SEAM_MODULES[module], node.names, 0), node)]
     kept, seams = [], []
     for alias in node.names:
         seam = SEAMS.get((module, alias.name))
@@ -237,3 +244,24 @@ def test_the_fake_node_passes_the_fakes_controls_through():
     assert node.committed == {0: "slice", 1: "slice"}
     with pytest.raises(ValueError, match="one-host"):
         FakeNode(num_hosts=2)
+
+
+def test_committed_reads_the_fake_without_spending_a_fault():
+    """A fault armed for the manager's next ``discover`` stays armed when a
+    test reads ``committed``."""
+    node = FakeNode(num_chips=2)
+    node.fail_next("discover")
+    assert node.committed == {0: "off", 1: "off"}
+    with pytest.raises(Exception, match="injected fault in discover"):
+        node.discover()
+
+
+def test_port_suite_reads_a_seam_module_inside_a_test_too():
+    """``from tpu_cc_manager.tpudev.attestation import ...`` inside a test's
+    body (test_multislice's) reads the port's ``gpudev/attestation``."""
+    imported = {}
+    node = ast.parse("def probe():\n    from tpu_cc_manager.tpudev.attestation import quote_digest\n"
+                     "    return quote_digest\n")
+    exec(compile(ast.fix_missing_locations(_ToPort(False, {}, {}).visit(node)), "<probe>",
+                 "exec"), imported)
+    assert imported["probe"]().__module__ == "tpu_cc_manager_torch.gpudev.attestation"

@@ -1,0 +1,10 @@
+"""Cross-slice attestation coordination (``ccmanager/multislice.py``) on the
+port: the cases of ``tests/test_multislice.py``, run through
+``test_torch_fleet_sides.port_suite``, over the port's ``FakeKube`` and its
+fake H100 node where the JAX suite builds ``FakeTpuBackend``. Every case
+runs.
+"""
+
+from test_torch_fleet_sides import fake_kube, port_suite  # noqa: F401
+
+port_suite(globals(), "test_multislice")

@@ -1,0 +1,8 @@
+"""The tracing subsystem (``obs/``: span nesting, context propagation, the
+journal) on the port: the cases of ``tests/test_obs.py``, run through
+``test_torch_fleet_sides.port_suite``. Every case runs.
+"""
+
+from test_torch_fleet_sides import port_suite
+
+port_suite(globals(), "test_obs")

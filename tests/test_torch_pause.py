@@ -1,0 +1,8 @@
+"""The pause and unpause label algebra (``drain/pause.py``) on the port: the
+cases of ``tests/test_pause.py``, run through
+``test_torch_fleet_sides.port_suite``. Every case runs.
+"""
+
+from test_torch_fleet_sides import port_suite
+
+port_suite(globals(), "test_pause")

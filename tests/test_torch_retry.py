@@ -1,0 +1,9 @@
+"""Retries, jitter, deadlines, ``poll_until`` and the circuit breaker
+(``utils/retry.py``) on the port: the cases of ``tests/test_retry.py``, run
+through ``test_torch_fleet_sides.port_suite``, over the port's ``FakeKube``.
+Every case runs.
+"""
+
+from test_torch_fleet_sides import port_suite
+
+port_suite(globals(), "test_retry")

@@ -16,16 +16,37 @@ and the agent takes a second SIGTERM as "exit now" (143).
 The mock serves one node, ``demo-node-0``, with the operator's component
 labels and pods, and plays their DaemonSets: a paused component's pod goes
 and comes back on unpause.
+
+A training job can ride through a flip beside the agent, as the workload
+side of the drain handshake (``drain/handshake.py``) sees it: the job
+(:func:`run_job`, ``python -m tpu_cc_manager_torch.ccmanager.localrig job``)
+trains the Llama on a fixed batch and polls a request file between steps;
+the sidecar ``python -m tpu_cc_manager_torch.ctl drain-subscribe`` runs
+``python -m tpu_cc_manager_torch.ccmanager.localrig request-checkpoint`` as
+its ``--on-drain`` command, which asks the job to checkpoint and returns
+once the job has saved and exited, and its ``--on-resume`` command starts a
+fresh job that restores the newest checkpoint::
+
+    rig.start_job(job_dir, ["--until", "8", "--hold-at", "3"])
+    rig.start_ctl(["drain-subscribe", "--node", NODE, "--job", "train",
+                   "--on-drain", request_checkpoint_cmd(job_dir),
+                   "--on-resume", job_cmd(job_dir, ["--resume", "--until", "8"])])
+
+Every job writes its steps, its checkpoint and its restore as JSON lines to
+``<job dir>/events.jsonl`` (:func:`job_events`).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import pathlib
+import shlex
 import signal
 import subprocess
 import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -121,12 +142,10 @@ class LocalRig:
                     env: dict | None = None) -> subprocess.Popen:
         """``python -m tpu_cc_manager_torch [args]`` for the mock's node,
         with its readiness file and state dir under the rig's workdir."""
-        full_env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-        full_env.update(
-            NODE_NAME=NODE, KUBECONFIG=self.kubeconfig, OPERATOR_NAMESPACE="tpu-operator",
-            CC_READINESS_FILE=str(self.readiness_file()),
-            CC_STATE_DIR=str(self.workdir / "state"), PYTHONPATH=REPO_ROOT)
-        full_env.update(env or {})
+        full_env = self._port_env({
+            "NODE_NAME": NODE, "OPERATOR_NAMESPACE": "tpu-operator",
+            "CC_READINESS_FILE": str(self.readiness_file()),
+            "CC_STATE_DIR": str(self.workdir / "state"), **(env or {})})
         if metrics_port:
             args = [*args, "--metrics-port", str(metrics_port)]
         return self._spawn(f"agent-{len(self.procs)}",
@@ -140,6 +159,25 @@ class LocalRig:
         full_env = {**launch["env"], "KUBECONFIG": self.kubeconfig, **(env or {})}
         return self._spawn(f"agent-{len(self.procs)}", launch["cmd"], full_env,
                            cwd=launch["cwd"])
+
+    def _port_env(self, env: dict | None) -> dict:
+        """This process's environment for a process of the port's against
+        the mock, ``env`` over it."""
+        full_env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        full_env.update(KUBECONFIG=self.kubeconfig, PYTHONPATH=REPO_ROOT, **(env or {}))
+        return full_env
+
+    def start_ctl(self, args: list[str], env: dict | None = None) -> subprocess.Popen:
+        """``python -m tpu_cc_manager_torch.ctl [args]`` against the mock."""
+        return self._spawn(f"ctl-{len(self.procs)}",
+                           [sys.executable, "-m", "tpu_cc_manager_torch.ctl", *args],
+                           self._port_env(env))
+
+    def start_job(self, job_dir: str, args: list[str],
+                  env: dict | None = None) -> subprocess.Popen:
+        """A training job (:func:`run_job`) writing under ``job_dir``."""
+        return self._spawn(f"job-{len(self.procs)}", shlex.split(job_cmd(job_dir, args)),
+                           self._port_env(env))
 
     def log_of(self, proc: subprocess.Popen) -> str:
         return self.logs[proc.pid].read_text(encoding="utf-8", errors="replace")
@@ -218,3 +256,193 @@ def await_phases(port: int, mode: str, phases, timeout_s: float) -> tuple[dict, 
 
     poll_until(recorded, timeout_s, POLL_S)
     return seen
+
+
+# ---- the training job beside the agent ------------------------------------------
+
+JOB_EVENTS = "events.jsonl"
+JOB_REQUEST = "checkpoint-request"
+JOB_PID = "job.pid"
+JOB_POLL_S = 0.05
+# The longest a held job waits for the request, and a request for the job's exit.
+JOB_HOLD_S = 600
+
+
+def job_cmd(job_dir: str, args: list[str]) -> str:
+    """The shell command of a job under ``job_dir``, under ``timeout``."""
+    return shlex.join(["timeout", "-k", "5", str(LIFETIME_S), sys.executable, "-m",
+                       "tpu_cc_manager_torch.ccmanager.localrig", "job", "--dir", job_dir,
+                       *args])
+
+
+def request_checkpoint_cmd(job_dir: str) -> str:
+    """The shell command that asks the job under ``job_dir`` to checkpoint
+    and returns once it has saved and exited (:func:`request_checkpoint`)."""
+    return shlex.join(["timeout", "-k", "5", str(JOB_HOLD_S + 30), sys.executable, "-m",
+                       "tpu_cc_manager_torch.ccmanager.localrig", "request-checkpoint",
+                       "--dir", job_dir])
+
+
+def _event(job_dir: pathlib.Path, **fields) -> None:
+    fields.setdefault("t", time.time())
+    with open(job_dir / JOB_EVENTS, "a", encoding="utf-8") as f:
+        f.write(json.dumps(fields, sort_keys=True) + "\n")
+
+
+def job_events(job_dir: str) -> list[dict]:
+    """Every event the jobs under ``job_dir`` and their requests wrote,
+    oldest first."""
+    path = pathlib.Path(job_dir) / JOB_EVENTS
+    if not path.exists():
+        return []
+    return [json.loads(line) for line in path.read_text(encoding="utf-8").splitlines()
+            if line.strip()]
+
+
+def _tree_bytes(path: pathlib.Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def run_job(job_dir: str, size: str = "llama3_2_1b", batch: int = 4, seq: int = 1024,
+            until: int = 8, hold_at: int = 0, device: str = "cuda",
+            resume: bool = False) -> int:
+    """Train the Llama ``size`` (``LlamaConfig.<size>()``, weights from seed
+    0) with AdamW on one fixed batch of ``batch`` x ``seq`` + 1 tokens
+    (numpy's generator from seed 0, as ``chip_smoke.py``'s training phase
+    draws it) on a one-rank mesh, up to step ``until``. With ``resume`` the
+    newest checkpoint is restored first. Between steps the job looks for
+    the checkpoint request
+    (:func:`request_checkpoint`); on it, it saves through
+    ``TrainCheckpointer`` and exits, which frees the card as a reset would
+    force. At step ``hold_at`` it stops stepping and waits for the request,
+    as a job whose next batch has not come. Each step's loss and kernel
+    launches go to the events file. Returns 0 when it reached ``until`` or
+    saved on request, 1 when a held job was never asked."""
+    import numpy as np
+    import torch
+
+    from tpu_cc_manager_torch import ops
+    from tpu_cc_manager_torch.models.llama import LlamaConfig
+    from tpu_cc_manager_torch.parallel.checkpoint import TrainCheckpointer
+    from tpu_cc_manager_torch.parallel.mesh import MeshSpec, make_mesh
+    from tpu_cc_manager_torch.parallel.train import (
+        make_llama_train_state,
+        make_llama_train_step,
+    )
+
+    directory = pathlib.Path(job_dir)
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / JOB_PID).write_text(str(os.getpid()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = getattr(LlamaConfig, size)()
+    mesh = make_mesh(MeshSpec(), device_type=device)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, seq + 1))).to(device)
+    state, shardings = make_llama_train_state(cfg, mesh, seed=0)
+    step = make_llama_train_step(cfg, mesh, shardings)
+    ckpt = TrainCheckpointer(str(directory / "ckpt"))
+    if resume:
+        t0 = time.perf_counter()
+        ckpt.restore(state)
+        _event(directory, event="restored", step=state.step,
+               restore_s=time.perf_counter() - t0, pid=os.getpid())
+    request = directory / JOB_REQUEST
+
+    def save_on_request() -> bool:
+        if not request.exists():
+            return False
+        t0 = time.perf_counter()
+        ckpt.save(state.step, state)
+        ckpt.close()
+        _event(directory, event="checkpoint", step=state.step,
+               save_s=time.perf_counter() - t0,
+               bytes=_tree_bytes(directory / "ckpt" / str(state.step)), pid=os.getpid())
+        return True
+
+    while state.step < until:
+        if save_on_request():
+            return 0
+        ops.reset_launch_counts()
+        state, loss = step(state, tokens)
+        loss = float(loss)  # waits for the step
+        launches = {**ops.launch_counts(),
+                    **{f"{k}/{v}": n for k, counts in ops.variant_launch_counts().items()
+                       for v, n in counts.items()}}
+        _event(directory, event="step", step=state.step, loss=loss, launches=launches,
+               pid=os.getpid())
+        if state.step == hold_at:
+            _event(directory, event="held", step=state.step, pid=os.getpid())
+            if not poll_until(request.exists, JOB_HOLD_S, JOB_POLL_S):
+                return 1
+    if save_on_request():
+        return 0
+    _event(directory, event="done", step=state.step, pid=os.getpid())
+    return 0
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    try:  # a zombie has exited; its parent has not reaped it yet
+        with open(f"/proc/{pid}/stat", encoding="utf-8") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def request_checkpoint(job_dir: str) -> int:
+    """Ask the job under ``job_dir`` to checkpoint: write the request file,
+    wait until the job process has exited and its checkpoint is in the
+    events file, and record when the exit was seen. 0 on a checkpoint, 1
+    when no job runs or none came within ``JOB_HOLD_S``."""
+    directory = pathlib.Path(job_dir)
+    try:
+        pid = int((directory / JOB_PID).read_text())
+    except (OSError, ValueError):
+        print(f"no job under {job_dir}", file=sys.stderr)
+        return 1
+    if not _alive(pid):
+        print(f"the job {pid} under {job_dir} is not running", file=sys.stderr)
+        return 1
+    _event(directory, event="request", pid=pid)
+    (directory / JOB_REQUEST).write_text(str(time.time()))
+    if not poll_until(lambda: not _alive(pid), JOB_HOLD_S, JOB_POLL_S):
+        print(f"the job {pid} did not exit within {JOB_HOLD_S} s", file=sys.stderr)
+        return 1
+    saved = [e for e in job_events(job_dir) if e["event"] == "checkpoint" and e["pid"] == pid]
+    (directory / JOB_REQUEST).unlink()
+    _event(directory, event="exited", pid=pid, saved=bool(saved))
+    if not saved:
+        print(f"the job {pid} exited without a checkpoint", file=sys.stderr)
+        return 1
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description="the training job beside the agent")
+    sub = p.add_subparsers(dest="command", required=True)
+    job = sub.add_parser("job", help="train, checkpoint on request (run_job)")
+    job.add_argument("--dir", required=True)
+    job.add_argument("--size", default="llama3_2_1b", help="a LlamaConfig constructor")
+    job.add_argument("--batch", type=int, default=4)
+    job.add_argument("--seq", type=int, default=1024)
+    job.add_argument("--until", type=int, default=8, help="the last step")
+    job.add_argument("--hold-at", type=int, default=0,
+                     help="stop stepping here until the checkpoint request (0: never)")
+    job.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    job.add_argument("--resume", action="store_true", help="restore the newest checkpoint")
+    req = sub.add_parser("request-checkpoint", help="ask the job to checkpoint and exit")
+    req.add_argument("--dir", required=True)
+    args = p.parse_args(argv)
+    if args.command == "request-checkpoint":
+        return request_checkpoint(args.dir)
+    return run_job(args.dir, size=args.size, batch=args.batch, seq=args.seq, until=args.until,
+                   hold_at=args.hold_at, device=args.device, resume=args.resume)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -35,6 +35,7 @@ from dataclasses import dataclass
 from tpu_cc_manager_torch.gpudev import ecdsa
 from tpu_cc_manager_torch.gpudev.contract import AttestationQuote, GpuError
 from tpu_cc_manager_torch.gpudev.fake import sign_fake_quote
+from tpu_cc_manager_torch.obs import trace as obs_trace
 
 log = logging.getLogger(__name__)
 
@@ -236,8 +237,11 @@ def verify_quote(
 ) -> list[str]:
     """The problem list; AttestationError on any problem unless
     ``debug_policy`` (devtools), which logs them instead."""
-    problems = quote_problems(quote, nonce, expected_mode,
-                              expected_slice_id=expected_slice_id, allow_fake=allow_fake)
+    with obs_trace.span("attest.verify", platform=quote.platform, mode=quote.mode,
+                        slice=quote.slice_id) as sp:
+        problems = quote_problems(quote, nonce, expected_mode,
+                                  expected_slice_id=expected_slice_id, allow_fake=allow_fake)
+        sp.set_attribute("problems", len(problems))
     if problems and not debug_policy:
         raise AttestationError("; ".join(problems))
     for p in problems:

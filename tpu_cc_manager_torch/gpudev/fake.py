@@ -47,6 +47,7 @@ from tpu_cc_manager_torch.gpudev.contract import (
     raise_pool_errors,
     reset_parallelism,
 )
+from tpu_cc_manager_torch.obs import trace as obs_trace
 
 log = logging.getLogger(__name__)
 
@@ -248,18 +249,20 @@ class FakeGpuBackend(GpuCcBackend):
 
     def _reset_one(self, device: GpuDevice) -> None:
         """One device's share of a per-device reset: its fault point, its
-        latency, its own committed promotion and its seconds in the log."""
+        latency, its own span, its own committed promotion and its seconds
+        in the log."""
         self._maybe_fail(f"reset.dev{device.index}")
-        t0 = time.monotonic()
-        delay = self._latency_for(self.reset_latency_s, device.index)
-        if delay:
-            time.sleep(delay)
-        with self._lock:
-            self._commit(device.index)
-            self.booted[device.index] = False
-            self._boot_done_at[device.index] = time.monotonic() + self._latency_for(
-                self.boot_latency_s, device.index)
-            self.op_log.append(("reset.dev", (device.index, time.monotonic() - t0)))
+        with obs_trace.span("reset.chip", chip=device.index):
+            t0 = time.monotonic()
+            delay = self._latency_for(self.reset_latency_s, device.index)
+            if delay:
+                time.sleep(delay)
+            with self._lock:
+                self._commit(device.index)
+                self.booted[device.index] = False
+                self._boot_done_at[device.index] = time.monotonic() + self._latency_for(
+                    self.boot_latency_s, device.index)
+                self.op_log.append(("reset.dev", (device.index, time.monotonic() - t0)))
 
     def reset(self, devices: tuple[GpuDevice, ...]) -> None:
         self._maybe_fail("reset")
@@ -270,7 +273,8 @@ class FakeGpuBackend(GpuCcBackend):
         if isinstance(self.reset_latency_s, (list, tuple)):
             workers = self.reset_parallelism_override or reset_parallelism()
             with ThreadPoolExecutor(max_workers=max(1, min(workers, len(targets)))) as pool:
-                futures = [pool.submit(self._reset_one, d) for d in targets]
+                futures = [pool.submit(obs_trace.in_current_context(self._reset_one, d))
+                           for d in targets]
             raise_pool_errors([f.exception() for f in futures if f.exception()])
         else:
             wall = self._latency_for(self.reset_latency_s, 0)

@@ -65,6 +65,7 @@ from tpu_cc_manager_torch.gpudev.nvml import (
     Nvml,
     NvmlError,
 )
+from tpu_cc_manager_torch.obs import trace as obs_trace
 from tpu_cc_manager_torch.utils.gpu_info import variant_from_name
 
 log = logging.getLogger(__name__)
@@ -141,12 +142,13 @@ class H100Backend(GpuCcBackend):
         return self._topology or self.discover()
 
     def _pool(self, fn, devices, what: str) -> None:
-        """``fn(device)`` for every device on the bounded pool."""
+        """``fn(device)`` for every device on the bounded pool, each in the
+        caller's trace context."""
         if not devices:
             return
         workers = self.reset_parallelism_override or reset_parallelism()
         with ThreadPoolExecutor(max_workers=max(1, min(workers, len(devices)))) as pool:
-            futures = [pool.submit(fn, d) for d in devices]
+            futures = [pool.submit(obs_trace.in_current_context(fn, d)) for d in devices]
         raise_pool_errors([f.exception() for f in futures if f.exception()], what)
 
     def _nvml_mode(self) -> str | None:
@@ -290,8 +292,11 @@ class H100Backend(GpuCcBackend):
         self._log("clear_staged", tuple(dropped))
 
     def _reset_one(self, device: GpuDevice, op: str = "reset.dev") -> None:
+        """One device's reset, in its own span (the contract's per-device
+        ``reset.chip``)."""
         t0 = time.monotonic()
-        self._device(device.bdf).reset_with_os()
+        with obs_trace.span("reset.chip", chip=device.index):
+            self._device(device.bdf).reset_with_os()
         self._log(op, (device.bdf, time.monotonic() - t0))
 
     def _boot_one(self, device: GpuDevice, op: str = "wait.dev") -> None:
