@@ -9,12 +9,22 @@ counts at 0 just before it and read just after:
 
 1. device: ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    and ``torch.cuda.get_device_name()``;
-2. build: nvcc builds every kernel from ``tpu_cc_manager_torch/csrc``;
-3. K1 (``ops/matmul.py``) against its plain version: bf16 4096^3 and
-   1024x4096x2048 (the wgmma kernel "sm90"), f32 512^3 (the CUDA-core kernel
-   "simt"), each case naming the kernel that ran, with kernel / plain /
-   ``torch.mm`` times and the card's bound; ``torch.mm`` also by its
-   kernels' device time from ``torch.profiler``;
+2. build: nvcc builds every kernel from ``tpu_cc_manager_torch/csrc``
+   (registers and spills per kernel from ptxas);
+3. K1 (``ops/matmul.py``), its tile sweep: at bf16 4096^3, at the rows one
+   card of 4 or 8 multiplies in the verify smoke (1024x4096x4096 and
+   512x4096x4096) and at 1024x4096x2048, every tile of ``SM90_TILES`` (the
+   wgmma kernel "sm90") against one plain result per shape, with f32 and
+   with bf16 output, each with kernel time (events and ``torch.profiler``
+   device time), TFLOP/s, registers and spills, beside ``torch.mm`` (events
+   and device time), the plain version and the card's bound, one line per
+   tile sorted by device time, the default and the fastest marked; at each of the
+   verify smoke's three shapes the card's default (``default_blocks`` for
+   those rows) must be the fastest tile or within the noise of it, from
+   ``K1_ROUNDS`` alternating rounds of it and the three fastest; tiles
+   outside the set (the two left out, one never compiled) must be refused
+   before any launch; then f32 512^3 (the CUDA-core kernel "simt"), naming
+   the kernel that ran;
 4. K2 (``ops/flash_attention.py``) against its plain version (O and lse):
    causal and not, S = 63, 200 and 2048, D = 16, 64 and 128, bf16 and f32;
    each case names the kernel that ran (``_variant``: bf16 at D = 64 or 128
@@ -32,9 +42,12 @@ counts at 0 just before it and read just after:
    beside SDPA's backward alone, each also by device time from
    ``torch.profiler``;
 5. the matmul smoke through the agent's runner with ``--kernel torch`` and
-   ``--kernel cuda`` (the latter must show K1 launches, all on "sm90");
-   each must report ``devices`` = ``torch.cuda.device_count()`` and each
-   card's oracles;
+   ``--kernel cuda`` (the latter must show K1 launches, all on "sm90", at
+   the default tiling); each must report ``devices`` =
+   ``torch.cuda.device_count()`` and each card's oracles; then ``--kernel
+   cuda --cuda-blocks`` at phase 3's fastest tile (ok, those blocks, the
+   same K1 count) and at a tile left out (one ``{"ok": false}`` line naming
+   the set, exit 1, nothing launched);
 6. the Llama-3-8B inference smoke at full width (32 layers, dim 4096, GQA
    32/8, vocab 128256, bf16, batch 4): all three oracles and K2 launches on
    every visible card (``devices`` and each card's oracles printed); the
@@ -249,7 +262,9 @@ counts at 0 just before it and read just after:
 22. last line ``{"ok": true, "device": {...}}``.
 
 Before phases 12, 13 and 20, which start processes on this card, the
-script prints what its own process still holds there.
+script prints what its own process still holds there. Every verify smoke
+of phases 15-20 must report K1 at the default tiling for its card and
+size (``default_blocks``), with phase 5's K1 count.
 
 Any failed phase exits non-zero before the last line. Without CUDA, or run
 outside the repository, it fails at once.
@@ -259,11 +274,29 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
 
 K1_TOL = 1e-4  # rel. to max|plain|: only the f32 summation order differs
+# K1 with bf16 output: both sides round one f32 value to bf16 (as K2_TOL).
+K1_BF16_TOL = 1e-2
+# (M, K, N) of the sweep: the verify smoke's product on 1, 4 and 8 cards
+# (4096, 1024 and 512 rows a card), where the default is checked, and a
+# product whose N differs from K.
+K1_SHAPES = ((4096, 4096, 4096), (1024, 4096, 4096), (512, 4096, 4096), (1024, 4096, 2048))
+K1_ROUNDS = 9  # alternating timing rounds of the default tile and the fastest
+K1_ROUND_LAUNCHES = 50  # launches a round, timed by their device time
+# The default may trail the fastest tile by the noise: the interquartile
+# range of the round-by-round ratio of their device times, at least the
+# floor and at most the cap, so that a default 5% slower than the fastest
+# always fails. That range measured 0.0014-0.0052 of the median on an H100
+# 80GB HBM3 (PERF.md §6); the floor keeps two tiles less than 2% apart, such
+# as (256, 128, 64) and (128, 256, 64) at 1024 rows (0.6%), from trading
+# places between runs and failing one.
+K1_NOISE_FLOOR = 0.02
+K1_NOISE_CAP = 0.05
 # K2's O, relative to max|plain O|: both sides round the same f32 value to
 # bf16, so they differ by at most one bf16 ulp, which is at most 2^-7 of a
 # value; in f32 only the summation order differs.
@@ -452,6 +485,18 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float | None:
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
+class PhaseClock:
+    """Wall seconds of each phase, printed as it ends, and of the script."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def lap(self, label: str) -> None:
+        now = time.perf_counter()
+        say(f"wall: {label} {now - self.last:.1f} s (script {now - self.start:.1f} s)")
+        self.last = now
+
+
 def fmt_ms(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
@@ -476,53 +521,284 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float, peak_bw: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_k1(torch, peaks) -> dict:
+def sm90_tile_report(log: str) -> dict[tuple, dict]:
+    """Registers and spill bytes of the sm90 K1 kernels from nvcc's
+    ``-Xptxas -v`` output, by (tile, out dtype): {"registers",
+    "spill_stores", "spill_loads"}. The f32-output kernel is the smoke's."""
+    import re
+
+    report, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            m = re.search(r"mm_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E", line)
+            entry = None if m is None else report.setdefault(
+                (tuple(int(g) for g in m.groups()[:3]), "f32" if m.group(4) == "f" else "bf16"), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return report
+
+
+def k1_case(torch, a, b, blocks, ref, expected: str, out_dtype=None) -> tuple:
+    """K1 at ``blocks`` on the card against the plain result ``ref`` (f32,
+    rounded to ``out_dtype`` as the plain version rounds it): (max abs
+    error, error relative to max|ref|, the variant that ran, ok)."""
+    from tpu_cc_manager_torch.ops.matmul import tiled_matmul
+
+    out_dtype = out_dtype or torch.float32
+    out, (variant,) = ran_variants(
+        [tiled_matmul], lambda: tiled_matmul(a, b, *blocks, out_dtype=out_dtype))
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.to(out_dtype).float()).abs().max())
+    rel = err / float(ref.abs().max())
+    tol = K1_TOL if out_dtype == torch.float32 else K1_BF16_TOL
+    ok = (bool(torch.isfinite(out).all()) and out.dtype == out_dtype and rel <= tol
+          and variant == expected)
+    return err, rel, variant, ok
+
+
+def check_k1(torch, peaks, variant: str) -> dict:
+    """Phase 3: K1's tile sweep. Every compiled sm90 tile at each of
+    ``K1_SHAPES`` against one plain result per shape, with f32 and with
+    bf16 output, each timed (events and device time) beside ``torch.mm``
+    and the bound; at the verify smoke's shapes the card's default for
+    those rows must be the fastest tile or within the noise; tiles outside
+    the set must be refused before any launch; then the f32 simt kernel at
+    512^3. Returns the default tile's timed cases at 4096^3 and
+    1024x4096x2048 (the kernels line) and the sweep."""
+    from tpu_cc_manager_torch import ops
+    from tpu_cc_manager_torch.ops import _build
     from tpu_cc_manager_torch.ops.matmul import (
-        KERNEL_BLOCKS,
         KERNEL_BLOCKS_F32,
+        SM90_LEFT_OUT,
+        SM90_TILES,
+        default_blocks,
         tiled_matmul,
         tiled_matmul_plain,
     )
 
-    expected = {torch.bfloat16: "sm90", torch.float32: "simt"}
+    say(f"K1 sm90 tiles: {len(SM90_TILES)} {[list(t) for t in SM90_TILES]}; left out "
+        f"{json.dumps({str(list(t)): why for t, why in SM90_LEFT_OUT.items()})}")
+    regs = sm90_tile_report(_build.build_log("matmul"))
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    timed = []
-    for M, K, N, dtype in ((4096, 4096, 4096, torch.bfloat16),
-                           (1024, 4096, 2048, torch.bfloat16),
-                           (512, 512, 512, torch.float32)):
-        a = torch.randn((M, K), generator=gen, device="cuda", dtype=dtype)
-        b = torch.randn((K, N), generator=gen, device="cuda", dtype=dtype)
-        blocks = KERNEL_BLOCKS if dtype == torch.bfloat16 else KERNEL_BLOCKS_F32
-        out, (variant,) = ran_variants([tiled_matmul], lambda: tiled_matmul(a, b, *blocks))
-        ref = tiled_matmul_plain(a, b, blocks[2])
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        ok = bool(torch.isfinite(out).all()) and rel <= K1_TOL and variant == expected[dtype]
-        ms = time_ms(lambda: tiled_matmul(a, b, *blocks))
-        dev = device_ms(lambda: tiled_matmul(a, b, *blocks))
-        plain = time_ms(lambda: tiled_matmul_plain(a, b, blocks[2]), iters=5, warmup=1)
+    timed, sweep, problems = [], {}, []
+    for M, K, N in K1_SHAPES:
+        a = torch.randn((M, K), generator=gen, device="cuda", dtype=torch.bfloat16)
+        b = torch.randn((K, N), generator=gen, device="cuda", dtype=torch.bfloat16)
+        ref = tiled_matmul_plain(a, b, 64)
+        plain = time_ms(lambda: tiled_matmul_plain(a, b, 64), iters=5, warmup=1)
         lib_event = time_ms(lambda: torch.mm(a, b, out_dtype=torch.float32))
         lib_dev = device_ms(lambda: torch.mm(a, b, out_dtype=torch.float32))
-        itemsize = a.element_size()
-        peak = peaks["bf16"] if dtype == torch.bfloat16 else peaks["f32"]
-        b_ms, b_by = bound_ms(2.0 * M * N * K, (M * K + K * N) * itemsize + M * N * 4,
-                              peak, peaks["bw"])
-        say(f"K1 [{variant}] {M}x{K}x{N} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-            f"rel_err={rel:.3e} (tol {K1_TOL:g}) kernel_ms={ms:.4f} (device {fmt_ms(dev)}) "
-            f"plain_ms={plain:.4f} torch.mm_ms={lib_event:.4f} (device {fmt_ms(lib_dev)}) "
-            f"bound_ms={b_ms:.4f} ({b_by}) tflops={2.0 * M * N * K / ms / 1e9:.1f} "
-            f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail(f"K1 [{variant}, want {expected[dtype]}] disagrees with its plain version "
-                 f"at {M}x{K}x{N} {dtype}")
-        if dtype == torch.bfloat16:  # the matmul smoke's kernel
-            timed.append(dict(variant=variant, shape=[M, K, N], max_abs_err=err, ms=ms,
-                              device_ms=dev, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=lib_event if lib_dev is None else lib_dev,
+        flops = 2.0 * M * N * K
+        b_ms, b_by = bound_ms(flops, (M * K + K * N) * 2 + M * N * 4, peaks["bf16"], peaks["bw"])
+        rows = []
+        for tile in SM90_TILES:
+            if M % tile[0] or N % tile[1] or K % tile[2]:
+                continue
+            err, rel, ran, ok = k1_case(torch, a, b, tile, ref, "sm90")
+            err16, rel16, ran16, ok16 = k1_case(torch, a, b, tile, ref, "sm90", torch.bfloat16)
+            if not (ok and ok16):
+                fail(f"K1 [{ran}, {ran16}, want sm90] at blocks {tile} disagrees with its plain "
+                     f"version at {M}x{K}x{N}: rel_err={rel:.3e} (tol {K1_TOL:g}), with bf16 "
+                     f"output {rel16:.3e} (tol {K1_BF16_TOL:g})")
+            ms = time_ms(lambda: tiled_matmul(a, b, *tile))
+            dev = device_ms(lambda: tiled_matmul(a, b, *tile))
+            rows.append(dict(blocks=list(tile), max_abs_err=err, rel_err=rel,
+                             bf16_rel_err=rel16, ms=ms, device_ms=dev,
+                             tflops=flops / ms / 1e9, **regs.get((tile, "f32"), {}),
+                             bf16_out=regs.get((tile, "bf16"), {})))
+        # By the kernels' own time: back to back, a small shape's launches
+        # outpace the host, and events would time the host.
+        rows.sort(key=lambda r: r["ms"] if r["device_ms"] is None else r["device_ms"])
+        default = list(default_blocks(variant, min(M, N, K), rows=M))
+        say(f"K1 sweep {M}x{K}x{N} bf16 -> f32 ({len(rows)} tiles, each within {K1_TOL:g} of "
+            f"one plain result, and with bf16 output within {K1_BF16_TOL:g}): "
+            f"torch.mm_ms={lib_event:.4f} (device {fmt_ms(lib_dev)}) plain_ms={plain:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        for i, r in enumerate(rows):
+            marks = [m for m, on in (("fastest", i == 0), ("default", r["blocks"] == default))
+                     if on]
+            say(f"K1 tile {tuple(r['blocks'])} {M}x{K}x{N}: kernel_ms={r['ms']:.4f} (device "
+                f"{fmt_ms(r['device_ms'])}) tflops={r['tflops']:.1f} x torch.mm "
+                f"{r['ms'] / lib_event:.3f} bound_ms={b_ms:.4f} rel_err={r['rel_err']:.3e} "
+                f"bf16_out_rel_err={r['bf16_rel_err']:.3e} registers={r.get('registers')} "
+                f"spill_stores={r.get('spill_stores')} spill_loads={r.get('spill_loads')} "
+                f"(bf16 out: {r['bf16_out'].get('registers')} / "
+                f"{r['bf16_out'].get('spill_stores')}) {' '.join(marks)}")
+        by_tile = {tuple(r["blocks"]): r for r in rows}
+        if tuple(default) not in by_tile:
+            fail(f"the default tile {default} at {M}x{K}x{N} is not a compiled tile")
+        shape = f"{M}x{K}x{N}"
+        sweep[shape] = dict(rows=rows, library_ms=lib_event, library_device_ms=lib_dev,
+                            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, default=default)
+        if N == K == 4096:  # the verify smoke's product on 1, 4 or 8 cards
+            gate = check_default_tile(a, b, rows, default, variant)
+            sweep[shape]["gate"] = gate
+            if gate.get("problem"):
+                problems.append(gate["problem"])
+        if M == N == K or N != K:  # the kernels line's two K1 shapes
+            d = by_tile[tuple(default)]
+            timed.append(dict(variant="sm90", shape=[M, K, N], blocks=default,
+                              max_abs_err=d["max_abs_err"], ms=d["ms"],
+                              device_ms=d["device_ms"], plain_ms=plain, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib_event if lib_dev is None else lib_dev,
                               library_event_ms=lib_event, library_call="torch.mm"))
-    return timed
+        del a, b, ref
+    if problems:
+        fail("; ".join(problems))
+
+    # Tiles outside the compiled set: refused before any launch, by name.
+    a = torch.zeros((512, 512), device="cuda", dtype=torch.bfloat16)
+    for tile in (*SM90_LEFT_OUT, (128, 128, 32)):
+        before = ops.variant_launch_counts()["K1"]
+        try:
+            tiled_matmul(a, a, *tile)
+            fail(f"K1 launched the tile {tile}, which is not compiled")
+        except ValueError as e:
+            named = str(list(SM90_TILES)) in str(e) and \
+                (tile not in SM90_LEFT_OUT or SM90_LEFT_OUT[tile] in str(e))
+            say(f"K1 tile {tile}: refused before the launch: {str(e)[-160:]}")
+            if not named or ops.variant_launch_counts()["K1"] != before:
+                fail(f"K1's refusal of {tile} did not name the set and the reason, or launched")
+
+    # The f32 kernel, which no path runs, at its one tile.
+    a = torch.randn((512, 512), generator=gen, device="cuda", dtype=torch.float32)
+    b = torch.randn((512, 512), generator=gen, device="cuda", dtype=torch.float32)
+    blocks = KERNEL_BLOCKS_F32
+    ref = tiled_matmul_plain(a, b, blocks[2])
+    err, rel, ran, ok = k1_case(torch, a, b, blocks, ref, "simt")
+    ms = time_ms(lambda: tiled_matmul(a, b, *blocks))
+    dev = device_ms(lambda: tiled_matmul(a, b, *blocks))
+    plain = time_ms(lambda: tiled_matmul_plain(a, b, blocks[2]), iters=5, warmup=1)
+    lib_event = time_ms(lambda: torch.mm(a, b, out_dtype=torch.float32))
+    lib_dev = device_ms(lambda: torch.mm(a, b, out_dtype=torch.float32))
+    b_ms, b_by = bound_ms(2.0 * 512**3, 3 * 512 * 512 * 4, peaks["f32"], peaks["bw"])
+    say(f"K1 [{ran}] 512x512x512 float32: max_abs_err={err:.3e} rel_err={rel:.3e} (tol "
+        f"{K1_TOL:g}) kernel_ms={ms:.4f} (device {fmt_ms(dev)}) plain_ms={plain:.4f} "
+        f"torch.mm_ms={lib_event:.4f} (device {fmt_ms(lib_dev)}) bound_ms={b_ms:.4f} ({b_by}) "
+        f"tflops={2.0 * 512**3 / ms / 1e9:.1f} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"K1 [{ran}, want simt] disagrees with its plain version at 512^3 f32")
+    return {"timed": timed, "sweep": sweep}
+
+
+def check_default_tile(a, b, rows, default, variant) -> dict:
+    """The card's default tile for ``a @ b`` against the sweep: the default
+    and the sweep's three fastest tiles timed again in ``K1_ROUNDS``
+    alternating rounds of ``K1_ROUND_LAUNCHES`` launches, by the kernels'
+    device time (at 512 rows a kernel runs shorter than the host takes to
+    launch it, so events would time the host). Each round gives
+    the ratio of the default's time to each tile's, so that a clock or
+    power state that spans a round moves both alike. The rival is the tile
+    with the highest median ratio; the default must not trail it by more
+    than the noise, the interquartile range of that ratio over its median,
+    at least ``K1_NOISE_FLOOR`` and at most ``K1_NOISE_CAP``. Returns the
+    times, the rival, the noise and, if the default trails, the problem."""
+    import statistics
+
+    from tpu_cc_manager_torch.ops.matmul import DEFAULT_BLOCKS, tiled_matmul
+
+    shape = f"{a.shape[0]}x{a.shape[1]}x{b.shape[1]}"
+    if variant not in DEFAULT_BLOCKS:
+        say(f"K1 default at {shape}: no measured DEFAULT_BLOCKS entry for {variant!r}; the "
+            f"fallback {default} ran")
+        return {}
+    d = tuple(default)
+    tiles = [tuple(r["blocks"]) for r in rows[:3]]
+    tiles += [d] if d not in tiles else []
+    times = {t: [] for t in tiles}
+    for _ in range(K1_ROUNDS):
+        for t in tiles:
+            ms = device_ms(lambda: tiled_matmul(a, b, *t), iters=K1_ROUND_LAUNCHES, warmup=1)
+            if ms is None:
+                return {"problem": f"the profiler saw no device time for K1 {t} at {shape}"}
+            times[t].append(ms)
+    ratios = {t: [x / y for x, y in zip(times[d], times[t])] for t in tiles if t != d}
+    median = {t: statistics.median(v) for t, v in ratios.items()}
+    # The default's closest rival, and the spread of their ratio over its median.
+    rival = max(median, key=median.get)
+    q = statistics.quantiles(ratios[rival], n=4)
+    iqr = (q[2] - q[0]) / median[rival]
+    noise = min(K1_NOISE_CAP, max(K1_NOISE_FLOOR, iqr))
+    fastest = rival if median[rival] > 1 else d
+    spread = {str(list(t)): [round(statistics.median(v), 5), round(min(v), 5), round(max(v), 5)]
+              for t, v in times.items()}
+    say(f"K1 default {d} ({variant}) at {shape} against the sweep's fastest, {K1_ROUNDS} "
+        f"alternating rounds of {K1_ROUND_LAUNCHES} launches: median device ms (min-max) "
+        f"{json.dumps(spread)}; default / tile, median by round "
+        f"{json.dumps({str(list(t)): round(m, 4) for t, m in median.items()})}; fastest "
+        f"{fastest}; noise {noise:.4f} (the interquartile range of the ratio to {rival}, "
+        f"{iqr:.4f} of its median; floor {K1_NOISE_FLOOR:g}, cap {K1_NOISE_CAP:g})")
+    out = dict(tiles={str(list(t)): v for t, v in times.items()}, fastest=list(fastest),
+               rival=list(rival), default_over_rival=median[rival], iqr=iqr, noise=noise)
+    if median[rival] > 1 + noise:
+        out["problem"] = (f"the default {d} for {variant} at {shape} is not the fastest tile "
+                          f"nor within the noise: {median[rival]:.4f}x the time of {rival} "
+                          f"(noise {noise:.4f})")
+    return out
+
+
+def tiling_problem(res: dict) -> str | None:
+    """Why a matmul smoke result does not report K1 at the default tiling
+    for its card, size and rows a card (``default_blocks``), or None."""
+    from tpu_cc_manager_torch.ops.matmul import default_blocks
+
+    size = res.get("size") or 0
+    want = list(default_blocks(res.get("generation"), size,
+                               rows=size // (res.get("devices") or 1)))
+    if res.get("kernel") != "cuda" or res.get("blocks") != want:
+        return (f"the smoke ran {res.get('kernel')} at blocks {res.get('blocks')}, not K1 at "
+                f"the default {want} for {res.get('generation')} at size {res.get('size')}")
+    return None
+
+
+def check_cuda_blocks_cli(winner: list, smoke_k1: int) -> dict:
+    """``python -m tpu_cc_manager_torch.smoke --workload matmul --kernel cuda
+    --cuda-blocks`` as a child: at the sweep's fastest tile it must pass and
+    report those blocks with ``smoke_k1`` sm90 launches; at a tile left out
+    it must print one ``{"ok": false}`` line naming the set and exit 1
+    before any launch (the refusal comes before the kernel library is even
+    loaded). Returns the passing run's launch counts."""
+    from tpu_cc_manager_torch.ops.matmul import SM90_LEFT_OUT
+    from tpu_cc_manager_torch.smoke.runner import SmokeError, run_workload_subprocess
+
+    arg = ",".join(str(b) for b in winner)
+    t0 = time.perf_counter()
+    try:
+        res = run_workload_subprocess("matmul", timeout_s=300,
+                                      extra_args=["--kernel", "cuda", "--cuda-blocks", arg])
+    except SmokeError as e:
+        fail(f"matmul smoke --cuda-blocks {arg}: {e}")
+    launches = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
+    say(f"matmul smoke --cuda-blocks {arg}: ok={res['ok']} blocks={res['blocks']} "
+        f"size={res['size']} tflops={res['tflops']} mfu={res['mfu']} K1 sm90="
+        f"{launches['K1/sm90']} simt={launches['K1/simt']}; child wall "
+        f"{time.perf_counter() - t0:.2f} s")
+    if res["blocks"] != winner or launches["K1/sm90"] != smoke_k1 or launches["K1/simt"]:
+        fail(f"matmul smoke --cuda-blocks {arg} reported blocks {res['blocks']} with K1 "
+             f"{launches}, want {winner} with {smoke_k1} on sm90")
+    refused = next(iter(SM90_LEFT_OUT))
+    arg = ",".join(str(b) for b in refused)
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_cc_manager_torch.smoke", "--workload", "matmul",
+         "--kernel", "cuda", "--cuda-blocks", arg],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    last = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    say(f"matmul smoke --cuda-blocks {arg}: rc={proc.returncode} {proc.stdout.strip()[-300:]}")
+    if proc.returncode != 1 or len(lines) != 1 or last.get("ok") is not False or \
+            "compiled for the tiles" not in last.get("error", ""):
+        fail(f"matmul smoke --cuda-blocks {arg} was not refused on one line with rc 1: "
+             f"rc={proc.returncode} {proc.stdout[-1000:]} {proc.stderr[-1000:]}")
+    return launches
 
 
 def expected_variant(dtype, D: int) -> str:
@@ -1972,7 +2248,7 @@ def check_device_layer(torch, smi_line: str) -> dict:
                                **flat_variants(res["kernel_launches_by_variant"])}
             say(f"device layer: verify after on: matmul --kernel cuda ok={res['ok']} "
                 f"devices={res['devices']} (torch {torch.cuda.device_count()}) "
-                f"bdf={[c['bdf'] for c in res['per_device']]} K1 sm90="
+                f"bdf={[c['bdf'] for c in res['per_device']]} blocks={res['blocks']} K1 sm90="
                 f"{verify_launches['K1/sm90']} simt={verify_launches['K1/simt']}; child wall "
                 f"{wall:.2f} s")
             check_devices("device layer verify smoke", res, torch.cuda.device_count())
@@ -1981,6 +2257,8 @@ def check_device_layer(torch, smi_line: str) -> dict:
                      f"{sorted(by_bdf)}")
             if verify_launches["K1/sm90"] <= 0 or verify_launches["K1/simt"] != 0:
                 fail("the verify smoke did not launch K1, or not all on its sm90 kernel")
+            if tiling_problem(res):
+                fail(f"device layer verify smoke: {tiling_problem(res)}")
     try:
         backend.stage_cc_mode(devices, MODE_PPCIE)
         fail("ppcie was staged on a node where not every device supports it")
@@ -2167,10 +2445,12 @@ def check_agent(torch, smi_line: str) -> dict:
     for run, res in zip(runs, smokes):
         counts = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
         say(f"agent: verify smoke after {run}: ok={res['ok']} devices={res['devices']} "
-            f"K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
+            f"blocks={res['blocks']} K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
         check_devices(f"agent verify smoke after {run}", res, torch.cuda.device_count())
         if counts["K1/sm90"] <= 0 or counts["K1/simt"] != 0:
             fail("the agent's verify smoke did not launch K1, or not all on its sm90 kernel")
+        if tiling_problem(res):
+            fail(f"the agent's verify smoke after {run}: {tiling_problem(res)}")
         launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
     say(f"agent [fake]: flip -> on drain->ready {flips[1]['wall_s']:.3f} s (in process, drain "
         f"poll 0.1 s; budget {AGENT_BUDGET_S:g} s; {smi_line})")
@@ -2204,6 +2484,11 @@ def check_agent(torch, smi_line: str) -> dict:
             f"{recorded_after:.3f} s after the ready label; {reconcile}")
         if not set(AGENT_PHASES) <= set(phases):
             fail(f"agent CLI: phases {sorted(phases)} miss one of the flip's")
+        cli_smokes = smoke_results_in(rig.log_of(agent))
+        say(f"agent CLI: verify smoke blocks {[res.get('blocks') for res in cli_smokes]}")
+        if len(cli_smokes) != 1 or tiling_problem(cli_smokes[0]):
+            fail(f"agent CLI: {len(cli_smokes)} verify smokes logged, want 1 at the default "
+                 f"tiling: {[tiling_problem(res) for res in cli_smokes]}")
         t0 = time.perf_counter()
         agent.send_signal(signal.SIGTERM)
         try:
@@ -2493,12 +2778,14 @@ def node_smokes(tag: str, pool: dict, smoke_k1: int, problems: list) -> dict:
         counts = {"K1/sm90": 0, "K1/simt": 0, **res.get("kernel_launches", {}),
                   **flat_variants(res.get("kernel_launches_by_variant", {}))}
         say(f"{tag}: {name} verify smoke ok={res['ok']} devices={res.get('devices')} "
-            f"K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
+            f"blocks={res.get('blocks')} K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
         # Every card the smoke child saw.
         check_devices(f"{tag} verify smoke on {name}", res, res.get("visible_devices", 1))
         if counts["K1/sm90"] != smoke_k1 or counts["K1/simt"] != 0:
             problems.append(f"{name}'s verify smoke made K1 sm90={counts['K1/sm90']} "
                             f"simt={counts['K1/simt']}, want {smoke_k1} on sm90")
+        if tiling_problem(res):
+            problems.append(f"{name}'s verify smoke: {tiling_problem(res)}")
         launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
     return launches
 
@@ -2931,6 +3218,8 @@ def daemonset_problems(run: dict, smoke_k1: int, cards: int) -> list[str]:
         if not res.get("ok") or by_variant.get("sm90") != smoke_k1 or by_variant.get("simt"):
             problems.append(f"the verify smoke was not ok with {smoke_k1} sm90 K1 launches: "
                             f"ok={res.get('ok')} K1 {by_variant}")
+        if tiling_problem(res):
+            problems.append(f"the verify smoke: {tiling_problem(res)}")
         if res.get("backend") != "cuda" or res.get("kernel") != "cuda" or \
                 res.get("devices") != cards:
             problems.append(f"the verify smoke ran {res.get('kernel')} on "
@@ -3199,7 +3488,8 @@ def check_daemonset_agent(torch, smi_line: str, smoke_k1: int) -> dict:
     for res in run["smokes"]:
         counts = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
         say(f"daemonset: verify smoke ok={res['ok']} devices={res['devices']} kernel "
-            f"{res.get('kernel')} K1 sm90={counts.get('K1/sm90')} simt={counts.get('K1/simt')}"
+            f"{res.get('kernel')} blocks={res.get('blocks')} K1 sm90={counts.get('K1/sm90')} "
+            f"simt={counts.get('K1/simt')}"
             f"; warmup compile {res.get('warmup_compile_s')} s, overlap "
             f"{res.get('warmup_overlap_s')} s, dispatch {res.get('warmup_dispatch_s')} s")
     env = run["launch"]["env"]
@@ -3422,6 +3712,8 @@ def job_flip_problems(run: dict, hold_at: int, until: int, n_layers: int, smoke_
             problems.append(f"the verify smoke was not ok with {want_k1} sm90 K1 launches on "
                             f"{cards} {device} device(s): ok={res.get('ok')} K1 {k1} on "
                             f"{res.get('devices')} {res.get('backend')}")
+        if tiling_problem(res):
+            problems.append(f"the verify smoke: {tiling_problem(res)}")
     if not run["sidecar_alive"] or run["sigterm_rc"] != 0:
         problems.append(f"the sidecar alive {run['sidecar_alive']}, the agent's SIGTERM exit "
                         f"{run['sigterm_rc']}")
@@ -3466,8 +3758,8 @@ def check_job_through_flip(torch, smi_line: str, smoke_k1: int,
         launches = {k: launches.get(k, 0) + v for k, v in e["launches"].items()}
     for res in run["smokes"]:
         counts = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
-        say(f"job: verify smoke ok={res['ok']} devices={res['devices']} K1 "
-            f"sm90={counts.get('K1/sm90')} simt={counts.get('K1/simt')}")
+        say(f"job: verify smoke ok={res['ok']} devices={res['devices']} blocks="
+            f"{res.get('blocks')} K1 sm90={counts.get('K1/sm90')} simt={counts.get('K1/simt')}")
         launches = {k: launches.get(k, 0) + counts.get(k, 0) for k in launches}
     say(f"job: launches over {len(first) + len(resumed)} steps and the verify smoke "
         f"{launches}")
@@ -3504,6 +3796,7 @@ def main(argv: list[str] | None = None) -> int:
     except ImportError as e:
         fail(f"the port is not importable (run from the repository root): {e}")
 
+    clock = PhaseClock()
     # --- 1. device ----------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3526,6 +3819,7 @@ def main(argv: list[str] | None = None) -> int:
     }
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
 
+    clock.lap("phase 1")
     # --- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build()
@@ -3537,14 +3831,16 @@ def main(argv: list[str] | None = None) -> int:
             if any(key in line for key in ("registers", "spill", "Compiling entry", "wgmma")):
                 say(f"ptxas[{name}]: {line.strip()}")
 
+    clock.lap("phase 2")
     # --- 3. and 4. kernels against their plain versions ----------------------
-    k1 = check_k1(torch, peaks)
+    k1 = check_k1(torch, peaks, variant)
     k2 = check_k2(torch, peaks)
     k3, k4 = check_k3_k4(torch, peaks)
     if args.only_kernels:
         say(json.dumps({"kernels_checked": {"K1": k1, "K2": k2, "K3": k3, "K4": k4}}))
         return 0
 
+    clock.lap("phases 3-4")
     # --- 5. matmul smoke, both kernels -----------------------------------------
     from tpu_cc_manager_torch.smoke.runner import SmokeError, run_workload_subprocess
 
@@ -3570,7 +3866,12 @@ def main(argv: list[str] | None = None) -> int:
             paths["matmul smoke"] = launches
             if launches["K1"] <= 0 or launches["K1/sm90"] != launches["K1"]:
                 fail("matmul smoke --kernel cuda did not launch K1, or not all on its sm90 kernel")
+            if tiling_problem(res):
+                fail(f"matmul smoke --kernel cuda: {tiling_problem(res)}")
+    paths["matmul smoke --cuda-blocks"] = check_cuda_blocks_cli(
+        k1["sweep"]["4096x4096x4096"]["rows"][0]["blocks"], paths["matmul smoke"]["K1"])
 
+    clock.lap("phase 5")
     # --- 6. Llama-3-8B inference smoke, full width ----------------------------
     try:
         res = run_workload_subprocess("llama", timeout_s=700,
@@ -3629,58 +3930,73 @@ def main(argv: list[str] | None = None) -> int:
     del logits, forward, example
     torch.cuda.empty_cache()
 
+    clock.lap("phase 6")
     # --- 7. the parallel layer, Llama-3.2-1B training on it ----------------------
     mesh = check_parallel_layer()
     train = train_llama_1b(torch, peaks, mesh)
     paths["1b training"] = train["launches"]
 
+    clock.lap("phase 7")
     # --- 8. ResNet-50 smoke -----------------------------------------------------
     resnet_smoke(torch)
     torch.cuda.empty_cache()
 
+    clock.lap("phase 8")
     # --- 9. checkpoint round trip -------------------------------------------------
     checkpoint_round_trip(torch)
     torch.cuda.empty_cache()
 
+    clock.lap("phase 9")
     # --- 10. ring attention on virtual ranks ---------------------------------------
     check_ring(torch)
 
+    clock.lap("phase 10")
     # --- 11. tensor parallelism on virtual ranks -----------------------------------
     paths.update(check_tp(torch, k2))
 
+    clock.lap("phase 11")
     # --- 12. the tp=2 train step, two processes on this card over gloo -------------
     paths[f"tp={GLOO_TP} train step, {GLOO_TP} processes"] = check_gloo_tp_step(
         torch, train["losses"])
 
+    clock.lap("phase 12")
     # --- 13. the 8B smoke as one tp=2 group, two processes over gloo ---------------
     paths[f"llama smoke tp={GLOO_TP}, {GLOO_TP} processes"] = check_gloo_smoke(torch,
                                                                              llama_one_card)
 
+    clock.lap("phase 13")
     # --- 14. the Hugging Face loader at Llama-3.2-1B width --------------------------
     paths["hf loader 1b forward"] = check_hf_loader(torch)
 
+    clock.lap("phase 14")
     # --- 15. the device layer (gpudev) on the card ---------------------------------
     paths["device layer verify smoke"] = check_device_layer(torch, smi_line)
 
+    clock.lap("phase 15")
     # --- 16. the port's agent on the card ------------------------------------------
     paths["agent verify smoke"] = check_agent(torch, smi_line)
 
+    clock.lap("phase 16")
     # --- 17. a rolling flip of a pool of two nodes, killed and resumed -------------
     paths["rolling pool verify smoke"] = check_rolling_pool(
         torch, smi_line, paths["matmul smoke"]["K1"])
 
+    clock.lap("phase 17")
     # --- 18. a federated flip of two regions through ctl, a shard killed -----------
     paths["federated flip verify smoke"] = check_federated_pool(
         torch, smi_line, paths["matmul smoke"]["K1"])
 
+    clock.lap("phase 18")
     # --- 19. the agent as its DaemonSet starts it ---------------------------------
     paths["daemonset agent verify smoke"] = check_daemonset_agent(
         torch, smi_line, paths["matmul smoke"]["K1"])
 
+    clock.lap("phase 19")
     # --- 20. a training job through a CC flip via the drain handshake ------------
     paths["job through a flip"] = check_job_through_flip(
         torch, smi_line, paths["matmul smoke"]["K1"], train["losses"])
 
+    clock.lap("phase 20")
     # --- 21. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
@@ -3691,7 +4007,7 @@ def main(argv: list[str] | None = None) -> int:
     # counted by the variant that ran at the timed shape.
     table = [
         ("K1 tiled_matmul", "tpu_cc_manager_torch/csrc/matmul.cu",
-         "tpu_cc_manager/ops/matmul.py:55", k1),
+         "tpu_cc_manager/ops/matmul.py:55", k1["timed"]),
         ("K2 flash_forward", attention, "tpu_cc_manager/ops/flash_attention.py:64", k2),
         ("K3 flash_backward_dq", attention, "tpu_cc_manager/ops/flash_attention.py:179", k3),
         ("K4 flash_backward_dkv", attention, "tpu_cc_manager/ops/flash_attention.py:231", k4),

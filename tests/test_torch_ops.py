@@ -98,18 +98,21 @@ class TestTiledMatmul:
             tmm.tiled_matmul(a, a)
         assert ops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
+    @pytest.mark.parametrize("variant", [*tmm.DEFAULT_BLOCKS, None, "h100-pcie"])
     @pytest.mark.parametrize("size", [4096, 512, 256, 96, 100, 64, 24, 8])
-    def test_default_blocks_clamp_like_jax(self, size, monkeypatch):
-        """The port's blocks differ (its kernel tile), the clamping rule is
-        the JAX package's: with JAX's table set to the port's tile, both
-        agree."""
-        monkeypatch.setattr(jmm, "DEFAULT_BLOCKS", {"h100-sxm": tmm.KERNEL_BLOCKS})
-        monkeypatch.setattr(jmm, "_FALLBACK_BLOCKS", tmm.KERNEL_BLOCKS)
-        for variant in (None, "h100-sxm"):
-            got = tmm.default_blocks(variant, size)
-            assert got == jmm.default_blocks(variant, size)
-            assert all(size % b == 0 and b <= t for b, t in zip(got, tmm.KERNEL_BLOCKS))
-        assert tmm.default_blocks("h100-sxm", 4096) == tmm.KERNEL_BLOCKS
+    def test_default_blocks_clamp_like_jax(self, size, variant, monkeypatch):
+        """The port's table differs (H100 tiles), the rule is the JAX
+        package's: with JAX's table and fallback set to the port's, both
+        agree for every variant of the table, for None and for a variant
+        the table lacks (``h100-pcie`` takes the fallback)."""
+        monkeypatch.setattr(jmm, "DEFAULT_BLOCKS", dict(tmm.DEFAULT_BLOCKS))
+        monkeypatch.setattr(jmm, "_FALLBACK_BLOCKS", tmm._FALLBACK_BLOCKS)
+        table = tmm.DEFAULT_BLOCKS.get(variant or "", tmm._FALLBACK_BLOCKS)
+        got = tmm.default_blocks(variant, size)
+        assert got == jmm.default_blocks(variant, size)
+        assert all(size % b == 0 and b <= t for b, t in zip(got, table))
+        if size == 4096:
+            assert got == table
 
 
 def attn_inputs(B=1, H=2, S=128, D=32, seed=0):

@@ -16,6 +16,7 @@ import pytest
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from tpu_cc_manager_torch.ops.matmul import default_blocks  # noqa: E402
 
 K1 = 1922  # the matmul smoke's K1 launches (phase 5)
 
@@ -26,6 +27,8 @@ def stand_in_smoke(workload: str) -> dict:
     assert workload == "matmul"
     time.sleep(0.05)  # cclint: test-sleep-ok(the stand-in smoke's own run time)
     return {"ok": True, "devices": 1, "per_device": [{"ok": True}],
+            "kernel": "cuda", "generation": "h100-sxm", "size": 4096,
+            "blocks": list(default_blocks("h100-sxm", 4096)),
             "kernel_launches": {"K1": K1, "K2": 0, "K3": 0, "K4": 0},
             "kernel_launches_by_variant": {"K1": {"sm90": K1, "simt": 0}}}
 

@@ -69,7 +69,7 @@ _F = ctypes.c_float
 #: C entry points of each library: name -> {symbol: argtypes}.
 SIGNATURES: dict[str, dict[str, list]] = {
     "matmul": {
-        "tcc_matmul_sm90": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "tcc_matmul_sm90": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "tcc_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention": {

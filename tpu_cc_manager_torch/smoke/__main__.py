@@ -2,6 +2,7 @@
 
 ``python -m tpu_cc_manager_torch.smoke --workload {matmul,llama,resnet}`` with the
 JAX entry's flags; ``--kernel {torch,cuda}`` is the port of ``{xla,pallas}``,
+``--cuda-blocks M,N,K`` the port of ``--pallas-blocks``,
 ``--device`` (default ``cuda``) picks the card or, when asked, the CPU, and
 ``--profile-dir`` records a ``torch.profiler`` trace.
 """
@@ -24,6 +25,10 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--kernel", default=None, choices=["torch", "cuda"],
                    help="matmul only: 'cuda' (the default) runs the hand-written K1 "
                    "kernel (ops/matmul.py), 'torch' PyTorch's own matmul")
+    p.add_argument("--cuda-blocks", default=None, metavar="M,N,K",
+                   help="matmul with --kernel cuda only: K1's tiling for one-command "
+                   "tuning sweeps on the card (e.g. 128,256,64; one of "
+                   "ops/matmul.py's SM90_TILES)")
     p.add_argument("--batch", type=int, default=None,
                    help="llama and resnet only: batch override (resnet: the global "
                    "batch)")
@@ -55,6 +60,14 @@ def main(argv: list[str] | None = None) -> int:
         if args.batch < 1:
             return usage_error(f"--batch must be positive (got {args.batch})")
         kwargs["batch"] = args.batch
+    if args.cuda_blocks is not None:
+        if args.kernel != "cuda" or args.workload != "matmul":
+            return usage_error("--cuda-blocks requires --workload matmul --kernel cuda")
+        try:
+            bm, bn, bk = (int(x) for x in args.cuda_blocks.split(","))
+        except ValueError:
+            return usage_error(f"unparseable --cuda-blocks {args.cuda_blocks!r}")
+        kwargs["blocks"] = (bm, bn, bk)
     try:
         if args.profile_dir:
             import torch

@@ -10,16 +10,22 @@ Port of ``tpu_cc_manager/smoke/matmul.py``:
   differentially (median T(4N) - median T(N), medians of 5), each timing
   ending in ``torch.cuda.synchronize()`` and a host readback;
 - the identity and row-sum oracles with the JAX package's thresholds;
+- K1's tiling is the JAX smoke's ``blocks``: the measured default for the
+  card and the rows each card multiplies unless the caller
+  (``--cuda-blocks``) names one, checked, clamped to the size and reported
+  as it ran;
 - either kernel runs on every visible card, each card taking its rows of
-  A (the size rounds to a multiple of 128 rows per card, which K1's tile
-  divides), as the JAX smoke shards rows over ``jax.devices()``; every
-  card must pass its oracles. The JAX ``'pallas'`` kernel runs on one
-  device; K1 does not, so that the agent's verify smoke, which runs the
-  default, checks every card of the node with the kernel the node ships.
+  A (the size rounds to a multiple of 128 rows per card, then for K1 to
+  whole tiles: block_m rows per card), as the JAX smoke shards rows over
+  ``jax.devices()``; every card must pass its oracles. The JAX
+  ``'pallas'`` kernel runs on one device; K1 does not, so that the agent's
+  verify smoke, which runs the default, checks every card of the node with
+  the kernel the node ships.
 """
 
 from __future__ import annotations
 
+import math
 import statistics
 import time
 
@@ -28,6 +34,7 @@ import torch
 from tpu_cc_manager_torch import ops
 from tpu_cc_manager_torch.models.llama import matmul_f32_out
 from tpu_cc_manager_torch.ops import _build
+from tpu_cc_manager_torch.ops.matmul import check_sm90_tile, default_blocks
 from tpu_cc_manager_torch.smoke.runner import (
     SmokeConfigError,
     await_dispatch_gate,
@@ -45,11 +52,14 @@ KERNELS = ("torch", "cuda")
 
 
 def run(size: int | None = None, iters: int | None = None, seed: int = 0,
-        kernel: str = "cuda", device: str = "cuda", n_devices: int | None = None) -> dict:
+        kernel: str = "cuda", device: str = "cuda", n_devices: int | None = None,
+        blocks: tuple[int, int, int] | None = None) -> dict:
     """``kernel='cuda'`` multiplies with the K1 kernel (its plain version on
     the CPU), ``'torch'`` with PyTorch's own matmul, on every visible card
     (``n_devices`` overrides the count), each card taking its rows of A as
-    the JAX smoke shards rows over ``jax.devices()``."""
+    the JAX smoke shards rows over ``jax.devices()``. ``blocks`` overrides
+    K1's (block_m, block_n, block_k) tiling for one-command tuning sweeps
+    on the card (default: the measured table, ``ops/matmul.py``)."""
     if kernel not in KERNELS:
         raise SmokeConfigError(f"unknown matmul kernel {kernel!r} (have {list(KERNELS)})")
     if size is not None and not isinstance(size, int):
@@ -66,11 +76,10 @@ def run(size: int | None = None, iters: int | None = None, seed: int = 0,
         iters = 64 if backend == "cuda" else 4
     # A multiple of 128 rows on every card, as the JAX smoke rounds.
     size = max(128 * count, (size // (128 * count)) * (128 * count))
-    blocks = None
     if kernel == "cuda":
-        from tpu_cc_manager_torch.ops.matmul import default_blocks
-
-        blocks = default_blocks(generation_for(backend), size)
+        blocks, size = k1_tiling(blocks, size, count, backend)
+    else:
+        blocks = None
 
     # COMPILE→DISPATCH boundary: nothing above touches the device. Under a
     # warmup gate the K1 library builds now, and execution waits for the
@@ -93,6 +102,34 @@ def run(size: int | None = None, iters: int | None = None, seed: int = 0,
         tflops=round(tflops, 2) if tflops is not None else None,
         mfu=round(tflops * 1e12 / (peak * count), 4) if tflops and peak else None)
     return out
+
+
+def k1_tiling(blocks, size: int, count: int, backend: str) -> tuple[tuple, int]:
+    """K1's effective (block_m, block_n, block_k) and the size, as the JAX
+    smoke checks its pallas tiling: ``None`` takes the measured default for
+    this card and its rows, clamped to the size; a non-positive tile, or one that does not
+    divide the size, is a :class:`SmokeConfigError`, and so is, on the card,
+    a tile the kernel is not compiled for (before any launch). The size then
+    rounds down to whole tiles: block_m rows on every card, and a multiple of
+    block_n and block_k."""
+    if blocks is None:
+        blocks = default_blocks(generation_for(backend), size, rows=size // count)
+    blocks = tuple(blocks)
+    if len(blocks) != 3 or any(not isinstance(b, int) or b < 1 for b in blocks):
+        raise SmokeConfigError(f"cuda blocks {blocks} must be three positive integers")
+    # Clamped as tiled_matmul clamps them: the result reports the tiling
+    # that ran, or a sweep would mislabel identical kernels.
+    blocks = tuple(min(b, size) for b in blocks)
+    bm, bn, bk = blocks
+    if size % bm or size % bn or size % bk:
+        raise SmokeConfigError(f"cuda blocks {blocks} must divide the problem size {size}")
+    if backend == "cuda":
+        try:
+            check_sm90_tile(blocks)
+        except ValueError as e:
+            raise SmokeConfigError(str(e)) from e
+    unit = math.lcm(bm * count, bn, bk)
+    return blocks, max(unit, size // unit * unit)
 
 
 # Each card's oracles and identity in the combined result.
