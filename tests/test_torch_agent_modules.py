@@ -6,9 +6,12 @@ outputs: label constants, retry backoff schedules, the metrics exposition
 byte for byte, the intent journal's file bytes (each package replays the
 other's file), and ``RestKube`` over HTTP against ``hack/mock_apiserver.py``.
 Every copied line of code equals the JAX file's but the manager's device
-seam (``ccmanager/node.py``), the serving harness's fake nodes and the
-lint's baseline file and env table; a few lines of prose are reworded."""
+seam (``ccmanager/node.py``), the serving harness's fake nodes, the lint's
+baseline file and env table, and the node bench's seams (its copies of the
+repository's ``bench.py``, ``bench_ab.py`` and ``hack/smoke_cache_bench.py``);
+a few lines of prose are reworded."""
 
+import ast
 import difflib
 import importlib
 import inspect
@@ -46,7 +49,9 @@ MODULES = [
 # The contract names of the device seam: the port's modules import
 # ``ccmanager.node``'s views and ``GpuError`` in their place.
 RENAMES = {"TpuCcBackend": "NodeBackend", "SliceTopology": "SliceView",
-           "TpuChip": "ChipView", "TpuError": "GpuError", "FakeTpuBackend": "FakeGpuBackend"}
+           "TpuChip": "ChipView", "TpuError": "GpuError", "FakeTpuBackend": "FakeGpuBackend",
+           # The node bench's usable flag and preflight name the card.
+           "tpu_usable": "cuda_usable", "_tpu_preflight": "_cuda_preflight"}
 # Names the CLI takes from its device layer: present, typed by that layer.
 DEVICE_LAYER = {"ccmanager.cli": {"load_backend"}}
 # Constants the port sets to its own value: the lint's baseline is a file
@@ -341,6 +346,207 @@ PROSE = {"ccmanager/remediation.py": 2, "ccmanager/multislice.py": 1,
          "lint/baseline.py": 1, "lint/fenced.py": 1, "lint/journal.py": 1, "lint/waits.py": 1,
          # The port's env table, described in the docstring and its reader's.
          "lint/surface.py": (1, 4)}
+# The node bench's copies: a torch matmul preflight on the card; no CPU
+# re-run after a failed smoke; the port's node backend over 4 fake GPUs;
+# the repository root as the children's directory; retry.wait for
+# time.sleep (the port's lint); the cache bench on a copy of the package;
+# the spare held to its pool-mate; no multihost scenario (LEFT_OUT); and
+# what every verify smoke ran, reported.
+SEAM.update({
+    'bench/bench.py': (
+        ['        "import jax, jax.numpy as jnp;"',
+         '        "print(float(jax.jit(lambda x: (x @ x).sum())(jnp.ones((128, 128)))))"',
+         '                f"# tpu preflight attempt {attempt} failed; retrying in "',
+         '            time.sleep(backoff_s)',
+         '        cwd=os.path.dirname(os.path.abspath(__file__)),',
+         '        "tpu" if any(s.get("backend") == "tpu" for s in smokes)',
+         '        from tpu_cc_manager.smoke.runner import SmokeError',
+         '        try:',
+         '            result = _smoke_subprocess(',
+         '                workload, timeout_s=240.0, force_cpu=not tpu_usable',
+         '            )',
+         '        except SmokeError:',
+         '            result = _smoke_subprocess(workload, timeout_s=240.0, force_cpu=True)',
+         '                cwd=os.path.dirname(os.path.abspath(__file__)),',
+         '            from tpu_cc_manager.smoke.runner import SmokeError',
+         '            try:',
+         '                result = self._inner.release_and_result()',
+         '            except SmokeError:',
+         '                result = _smoke_subprocess(',
+         '                    self._workload, timeout_s=240.0, force_cpu=True',
+         '                )',
+         '    backend = FakeTpuBackend(',
+         '        num_chips=4,',
+         '        accelerator_type="v5p-8",',
+         '    )',
+         '        backend = FakeTpuBackend(',
+         '            num_chips=4,',
+         '            accelerator_type="v5p-8",',
+         '            slice_id=f"bench-spare-slice-{i}",',
+         '        )',
+         '            smoke_runner=lambda w: _smoke_subprocess(',
+         '                w, timeout_s=240.0, force_cpu=not tpu_usable',
+         '            ),',
+         '        backend=FakeTpuBackend(),',
+         '    cache_dir = tempfile.mkdtemp(prefix="tpu-cc-smoke-cache-")',
+         '    extra_env = {',
+         '        "JAX_COMPILATION_CACHE_DIR": cache_dir,',
+         '        "TPU_CC_CACHE_DIR": cache_dir,',
+         '        "TPU_CC_NO_COMPILATION_CACHE": "",',
+         '        "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS": "0",',
+         '        "JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES": "-1",',
+         '    }',
+         '            extra_env=extra_env,',
+         '        result["cache_entries"] = len(os.listdir(cache_dir))',
+         '            extra_env=extra_env,',
+         '        shutil.rmtree(cache_dir, ignore_errors=True)',
+         '    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))',
+         '    multihost = run_multihost_scenario()',
+         '    from tpu_cc_manager.utils.tpu_info import tpu_generation',
+         '    chip_generation = smoke.get("generation") or tpu_generation()',
+         '        "multihost_slice": multihost,',
+         '        result["ok"] and multihost["ok"] and handshake["ok"]',
+         '    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))',
+         '    reference = 31.45',
+         '        result["ok"] and value is not None and value < reference'],
+        ['_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))',
+         '    from tpu_cc_manager.utils import retry',
+         '        "import torch; x = torch.ones((128, 128), device=\'cuda\');"',
+         '        "print(float((x @ x).sum()))"',
+         '                f"# cuda preflight attempt {attempt} failed; retrying in "',
+         '            retry.wait(backoff_s)',
+         '    cwd: str | None = None,',
+         '        cwd=cwd or _REPO_ROOT,',
+         '        "cuda" if any(s.get("backend") == "cuda" for s in smokes)',
+         '    from tpu_cc_manager.tpudev.contract import TpuCcBackend',
+         '        result = _smoke_subprocess(',
+         '            workload, timeout_s=240.0, force_cpu=not tpu_usable',
+         '        )',
+         '                cwd=_REPO_ROOT,',
+         '            result = self._inner.release_and_result()',
+         '    backend = TpuCcBackend(FakeTpuBackend(',
+         '        num_gpus=4,',
+         '    ))',
+         '    from tpu_cc_manager.tpudev.contract import TpuCcBackend',
+         '    smokes: list[dict] = []',
+         '    def timed_smoke(workload: str) -> dict:',
+         '        t0 = time.monotonic()',
+         '        result = _smoke_subprocess(',
+         '            workload, timeout_s=240.0, force_cpu=not tpu_usable',
+         '        )',
+         '        smokes.append({"start": t0, "end": time.monotonic(), **smoke_kernels(result)})',
+         '        return result',
+         '        backend = TpuCcBackend(FakeTpuBackend(',
+         '            num_gpus=4,',
+         '            node_id=f"bench-spare-slice-{i}",',
+         '        ))',
+         '            smoke_runner=timed_smoke,',
+         '            "smokes": smokes,',
+         '            "smoke_windows_overlap": windows_overlap(smokes),',
+         '    from tpu_cc_manager.tpudev.contract import TpuCcBackend',
+         '    from tpu_cc_manager.utils import retry',
+         '        backend=TpuCcBackend(FakeTpuBackend()),',
+         '    root = tempfile.mkdtemp(prefix="tpu-cc-smoke-cache-")',
+         '    tree, tmp = os.path.join(root, "tree"), os.path.join(root, "tmp")',
+         '    shutil.copytree(',
+         '        os.path.join(_REPO_ROOT, "tpu_cc_manager"),',
+         '        os.path.join(tree, "tpu_cc_manager"),',
+         '        ignore=shutil.ignore_patterns("__pycache__"),',
+         '    )',
+         '    os.mkdir(tmp)',
+         '    cache_dir = os.path.join(tree, "build", "torch_kernels")',
+         '    extra_env = {"TPU_CC_CACHE_DIR": "", "TMPDIR": tmp}',
+         '    def libraries() -> dict:',
+         '        found = {}',
+         '        for dirpath, _dirs, files in os.walk(root):',
+         '            for f in files:',
+         '                if f.endswith(".so"):',
+         '                    path = os.path.join(dirpath, f)',
+         '                    found[path] = os.stat(path).st_mtime_ns',
+         '        return found',
+         '            extra_env=extra_env, cwd=tree,',
+         '        after_cold = libraries()',
+         '        result["cache_entries"] = sum(',
+         '            os.path.dirname(p) == cache_dir for p in after_cold',
+         '        )',
+         '            extra_env=extra_env, cwd=tree,',
+         '        after_warm = libraries()',
+         '        result["warm_built"] = sum(',
+         '            after_cold.get(p) != mtime for p, mtime in after_warm.items()',
+         '        )',
+         '        result["elsewhere"] = sorted(',
+         '            os.path.relpath(p, root) for p in after_warm',
+         '            if os.path.dirname(p) != cache_dir',
+         '        )',
+         '        result["smokes"] = [smoke_kernels(cold), smoke_kernels(warm)]',
+         '            and result["warm_built"] == 0 and not result["elsewhere"]',
+         '        shutil.rmtree(root, ignore_errors=True)',
+         'def smoke_kernels(smoke: dict) -> dict:',
+         '    return {',
+         '        k: smoke.get(k)',
+         '        for k in ("backend", "kernel", "generation", "size", "devices", "blocks",',
+         '                  "kernel_launches", "kernel_launches_by_variant")',
+         '    }',
+         'def windows_overlap(smokes: list[dict]) -> bool:',
+         '    spans = sorted((s["start"], s["end"]) for s in smokes)',
+         '    return any(b[0] < a[1] for a, b in zip(spans, spans[1:]))',
+         'def preflight_failed(metric: str) -> int:',
+         '    print(json.dumps({',
+         '        "metric": metric,',
+         '        "ok": False,',
+         '        "error": "cuda preflight failed: no torch matmul on cuda:0 in a "',
+         '                 "child process succeeded",',
+         '    }))',
+         '    return 1',
+         '    sys.path.insert(0, _REPO_ROOT)',
+         '    if not tpu_usable:',
+         '        return preflight_failed("node_drain_cc_on_ready_sec")',
+         '    from tpu_cc_manager.utils.gpu_info import gpu_variant',
+         '    chip_generation = smoke.get("generation") or gpu_variant()',
+         '        "smoke_kernels": [',
+         '            smoke_kernels(r["smoke"]) for r in [control] + realistic_runs',
+         '        ],',
+         '        result["ok"] and handshake["ok"]',
+         '    sys.path.insert(0, _REPO_ROOT)',
+         '    if not tpu_usable:',
+         '        return preflight_failed("spare_prestage_flip_sec")',
+         '    reference = spare.get("full_path_wall_s")',
+         '        result["ok"] and value is not None and reference is not None',
+         '        and value < reference']),
+    'bench/bench_ab.py': (
+        ['        cwd=os.path.dirname(os.path.abspath(__file__)),',
+         '        help="pin the smokes to CPU (CI harness mode)",',
+         '        help="llama config for the A/B (e.g. llama3.2-3b — the largest "',
+         '        "single-chip v5e fit; default: the smoke\'s backend default)",',
+         '    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))',
+         '    backend = FakeTpuBackend(',
+         '        num_chips=4, accelerator_type="v5p-8", initial_mode=MODE_ON',
+         '    )'],
+        ['_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))',
+         '        cwd=_REPO_ROOT,',
+         '        help="pin the smokes to the CPU (CI harness mode); without it they "',
+         '        "run on the card and a smoke that fails there is an error",',
+         '        help="llama config for the A/B (one of the port smoke\'s --size "',
+         '        "names, e.g. llama3.2-3b; default: the smoke\'s backend default)",',
+         '    sys.path.insert(0, _REPO_ROOT)',
+         '    from tpu_cc_manager.tpudev.contract import TpuCcBackend',
+         '    backend = TpuCcBackend(FakeTpuBackend(',
+         '        num_gpus=4, initial_mode=MODE_ON',
+         '    ))',
+         '    from tpu_cc_manager.bench.bench import smoke_kernels as kernels_of',
+         '    smoke_kernels: list[dict] = []',
+         '                    smoke_kernels.append(',
+         '                        {"workload": w, "mode": mode, **kernels_of(result)})',
+         '    result["smoke_kernels"] = smoke_kernels']),
+    'bench/smoke_cache_bench.py': (
+        ['import os',
+         '    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))',
+         '    sys.path.insert(0, repo_root)'],
+        ['    from tpu_cc_manager.bench import bench',
+         '    if not tpu_usable:',
+         '        return bench.preflight_failed("smoke_cache_cold_warm_s")']),
+})
+PROSE.update({'bench/bench.py': (87, 114), 'bench/bench_ab.py': (12, 25), 'bench/smoke_cache_bench.py': (12, 14)})
 COPIES = ["ccmanager/watchdog.py", "ccmanager/remediation.py", "ccmanager/slicecoord.py",
           "ccmanager/multislice.py", "ccmanager/intent_journal.py", "ccmanager/informer.py",
           "ccmanager/metrics_server.py", "version.py", "labels.py", "utils/locks.py",
@@ -357,6 +563,27 @@ COPIES = ["ccmanager/watchdog.py", "ccmanager/remediation.py", "ccmanager/slicec
           "lint/flow.py", "lint/journal.py", "lint/locks.py", "lint/surface.py", "lint/waits.py"]
 
 
+# The node bench's copies and the repository files they copy (the others
+# copy ``tpu_cc_manager/<rel>``), and the top-level functions of a JAX
+# file that its copy leaves out: an H100 node is a one-host slice, so the
+# bench has no multihost scenario.
+JAX_FILES = {"bench/bench.py": "bench.py", "bench/bench_ab.py": "bench_ab.py",
+             "bench/smoke_cache_bench.py": "hack/smoke_cache_bench.py"}
+LEFT_OUT = {"bench/bench.py": ("run_multihost_scenario",)}
+
+
+def without_functions(text: str, names: tuple[str, ...]) -> str:
+    """``text`` less the lines of its top-level functions ``names``."""
+    lines = text.splitlines()
+    drop = set()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name in names:
+            drop.update(range(node.lineno - 1, node.end_lineno))
+    assert len({n.name for n in ast.parse(text).body if isinstance(n, ast.FunctionDef)}
+               & set(names)) == len(names)
+    return "\n".join(line for i, line in enumerate(lines) if i not in drop) + "\n"
+
+
 def prose_lines(text: str) -> set[int]:
     """Indices of the lines that hold a comment or a triple-quoted string."""
     lines = set()
@@ -368,12 +595,14 @@ def prose_lines(text: str) -> set[int]:
     return lines
 
 
-@pytest.mark.parametrize("rel", ["ccmanager/manager.py", "serve/harness.py"] + COPIES)
+@pytest.mark.parametrize("rel", ["ccmanager/manager.py", "serve/harness.py"] + COPIES
+                         + list(JAX_FILES))
 def test_the_copies_differ_from_the_jax_files_only_at_the_seam(rel):
     texts = []
-    for package in ("tpu_cc_manager", "tpu_cc_manager_torch"):
-        with open(os.path.join(REPO, package, rel), encoding="utf-8") as f:
+    for path in (JAX_FILES.get(rel, f"tpu_cc_manager/{rel}"), f"tpu_cc_manager_torch/{rel}"):
+        with open(os.path.join(REPO, path), encoding="utf-8") as f:
             texts.append(normalise(f.read()))
+    texts[0] = without_functions(texts[0], LEFT_OUT.get(rel, ()))
     (jax_lines, port_lines), (jax_prose, port_prose) = (
         [t.splitlines() for t in texts], [prose_lines(t) for t in texts])
     code, prose = ([], []), [0, 0]

@@ -123,6 +123,9 @@ class _ToPort(ast.NodeTransformer):
         self.paths, self.modules, self.strings = paths, modules, strings
 
     def visit_ImportFrom(self, node):
+        if node.level == 0 and node.module in self.modules:
+            node.module = self.modules[node.module]
+            return node
         return _port_import(node)
 
     def visit_Import(self, node):
@@ -151,7 +154,8 @@ def port_suite(namespace: dict, suite: str, drop: tuple[str, ...] = (), paths: b
     exist, so a renamed JAX case fails here instead of running nowhere.
     ``paths`` reads every string that starts with a path of the JAX
     package as the port's path (:data:`PATHS`); ``modules`` binds a plain
-    ``import <name>`` to a module of the port instead; ``strings`` replaces
+    ``import <name>``, and ``from <name> import ...`` (at the top or inside
+    a test), to a module of the port instead; ``strings`` replaces
     text in every string constant (code a suite runs in a child process).
     Assertions are rewritten as pytest rewrites a test module's, and tracebacks point at
     the JAX file's lines."""

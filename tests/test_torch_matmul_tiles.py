@@ -5,7 +5,10 @@ tensors) against the JAX ``tiled_matmul`` in interpret mode at the same
 blocks, with tests/test_ops.py's bf16 tolerance; the tile check, which needs
 no card; the compiled set as ``csrc/matmul.cu`` names it; the smoke's
 ``blocks`` and size rounding against the JAX smoke's; and ``--cuda-blocks``.
-Inputs come from numpy with fixed seeds.
+The f32 kernel takes the caller's tiling (``check_f32_tile``): at each
+tiling ``chip_smoke.py`` runs it at, the plain version against the JAX
+kernel in f32, with tests/test_ops.py's f32 tolerance, and a non-divisor
+refused with the JAX message. Inputs come from numpy with fixed seeds.
 """
 
 import importlib
@@ -92,6 +95,69 @@ def test_the_tile_check_accepts_the_set_and_refuses_the_rest():
         with pytest.raises(ValueError, match=re.escape(str(list(tmm.SM90_TILES)))) as e:
             tmm.check_sm90_tile(tile)
         assert "left out" not in str(e.value)
+
+
+# (M, K, N, blocks): the f32 tilings chip_smoke.py phase 3 runs the simt
+# kernel at (the reference test's, KERNEL_BLOCKS, the old fixed tile, one
+# below the kernel's 64 x 64 thread layout, a non-power-of-two divisor), at
+# shapes small enough for the JAX kernel in interpret mode.
+F32_TILINGS = [
+    (256, 512, 128, (128, 128, 128)),  # tests/test_ops.py::test_matches_xla
+    (256, 256, 256, (128, 128, 64)),
+    (128, 64, 128, (64, 64, 16)),
+    (128, 128, 128, (32, 32, 32)),
+    (192, 96, 192, (96, 192, 48)),
+]
+
+
+@pytest.mark.parametrize("M,K,N,blocks", F32_TILINGS, ids=lambda v: str(v))
+def test_the_f32_kernel_takes_the_callers_tiling(M, K, N, blocks):
+    """``check_f32_tile`` accepts the tiling (no card needed), and the port's
+    plain version, which the simt kernel's K walk groups the same way,
+    holds against the JAX kernel in interpret mode at those blocks
+    (atol 1e-3, rtol 1e-5: tests/test_ops.py's f32 tolerance)."""
+    tmm.check_f32_tile(blocks, M, N, K)
+    a, b = normal((M, K), 20), normal((K, N), 21)
+    want = np.asarray(jmm.tiled_matmul(jnp.asarray(a), jnp.asarray(b), *blocks))
+    got = tmm.tiled_matmul(torch.from_numpy(a), torch.from_numpy(b), *blocks)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), a @ b, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("blocks", [(100, 128, 128), (128, 96, 128), (128, 128, 384),
+                                    (0, 128, 128)])
+def test_the_f32_tile_check_refuses_what_the_jax_kernel_refuses(blocks):
+    """A tiling that does not divide the shape is refused with the JAX
+    kernel's own message, before anything runs; a non-positive one too."""
+    a, b = normal((256, 512), 20), normal((512, 128), 21)
+    with pytest.raises(ValueError) as port:
+        tmm.tiled_matmul(torch.from_numpy(a), torch.from_numpy(b), *blocks)
+    if min(blocks) < 1:
+        assert "must be positive" in str(port.value)
+        return
+    with pytest.raises(ValueError) as ref:
+        jmm.tiled_matmul(jnp.asarray(a), jnp.asarray(b), *blocks)
+    assert str(port.value) == str(ref.value)
+    with pytest.raises(ValueError, match="not divisible"):
+        tmm.check_f32_tile(blocks, 256, 128, 512)
+
+
+def test_the_f32_entry_takes_the_blocks():
+    """``tcc_matmul_f32`` takes (bm, bn, bk) where ``tcc_matmul_sm90`` does,
+    and the wrapper passes the caller's: no fixed f32 tile is left."""
+    src = MATMUL_CU.read_text()
+    entry = src.split("int tcc_matmul_f32(", 1)[1].split(")", 1)[0]
+    assert re.sub(r"\s+", " ", entry).endswith(
+        "int M, int N, int K, int bm, int bn, int bk, int out_bf16, void* stream")
+    assert "FBM" not in src and not hasattr(tmm, "KERNEL_BLOCKS_F32")
+    from tpu_cc_manager_torch.ops import _build
+
+    sig = _build.SIGNATURES["matmul"]
+    assert sig["tcc_matmul_f32"] == sig["tcc_matmul_sm90"]
+    wrapper = pathlib.Path(tmm.__file__).read_text()
+    assert "lib.tcc_matmul_f32(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,\n" \
+           "                                    *blocks, out_bf16, stream)" in wrapper
 
 
 # (blocks, the error both smokes raise at size 256 or None): the JAX

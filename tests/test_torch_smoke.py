@@ -312,7 +312,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     nvcc: nothing is built or loaded at import. The agent's, the fleet
     rollout's and the operator's modules (``ccmanager``, ``serve``,
     ``faults``, ``ctl``, ``obs/fleet``, ``lint``, the deployment's readers
-    ``deploy`` and what they import) import no torch, and importing
+    ``deploy``, the node bench ``bench`` and what they import) import no
+    torch, and importing
     ``__main__`` does not start the agent. The kernels' build command
     (``ops/_build.py``) is one of the modules."""
     code = """
@@ -323,6 +324,8 @@ import tpu_cc_manager_torch.faults, tpu_cc_manager_torch.drain.sim
 import tpu_cc_manager_torch.ctl, tpu_cc_manager_torch.ccmanager.federation
 import tpu_cc_manager_torch.obs.fleet, tpu_cc_manager_torch.lint.__main__
 import tpu_cc_manager_torch.deploy
+import tpu_cc_manager_torch.bench.bench, tpu_cc_manager_torch.bench.bench_ab
+import tpu_cc_manager_torch.bench.smoke_cache_bench
 assert not [m for m in sys.modules if m == "torch" or m.startswith("torch.")]
 import tpu_cc_manager_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_cc_manager_torch.__path__, "tpu_cc_manager_torch.")]

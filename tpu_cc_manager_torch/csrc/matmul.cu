@@ -43,7 +43,8 @@
 //
 // f32 operands (which tiled_matmul accepts, like the TPU kernel) take the
 // "simt" kernel, plain shared-memory FMAs in full f32, so the result keeps
-// f32 precision (wgmma would compute it in TF32).
+// f32 precision (wgmma would compute it in TF32), on any tiling the caller
+// gives that divides the shape (see its section below).
 //
 // Plain C interface, loaded with ctypes. Every entry returns cudaGetLastError()
 // right after the launch.
@@ -216,59 +217,85 @@ int launch_sm90(const void* a, const void* b, void* c, int M, int N, int K, cuda
 }
 
 // ---- f32 SIMT kernel ("simt") -------------------------------------------------
+//
+// The caller's tiling, at run time, as the TPU kernel takes its blocks: one
+// block per BM x BN output tile (grid N / BN x M / BM, no tile substituted),
+// walking K in BK-deep steps. Each step's partial sum starts at zero and is
+// added to the f32 accumulator at the end of the step, as the TPU kernel's
+// `acc_ref[:] += jnp.dot(...)` and ops/matmul.py::tiled_matmul_plain group
+// the sum. 256 threads of 4 x 4 outputs each cover a 64 x 64 sub-tile, so a
+// larger tile is walked in sub-tiles inside the block (each with its own K
+// walk), and a tile smaller than 64 x 64, or the ragged last sub-tile of a
+// tile such as 96 x 192, leaves the threads past its edge idle. A step is
+// staged in shared memory in chunks of 16 K values (two 16 x 68 f32 arrays,
+// 8.7 KB, static), so any BK fits without opting in to dynamic shared
+// memory. Bound: at 512^3 the work is 0.27 GFLOP against 3 MB, so the 67
+// TFLOP/s of f32 FMAs bound it; the kernel is kept simple (no path runs it)
+// and re-reads A and B once per sub-tile.
 
-constexpr int FBM = 64;
-constexpr int FBN = 64;
-constexpr int FBK = 16;
+constexpr int F_SUB = 64;       // rows and columns of a sub-tile
+constexpr int F_CHUNK = 16;     // K values staged at a time
 constexpr int F_THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
 template <typename OutT>
 __global__ void __launch_bounds__(F_THREADS)
     mm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                  OutT* __restrict__ C, int K, int lda, int ldb, int ldc) {
-  __shared__ float As[FBK][FBM + 4];  // A tile stored transposed: As[k][m]
-  __shared__ float Bs[FBK][FBN + 4];
+                  OutT* __restrict__ C, int N, int K, int BM, int BN, int BK) {
+  __shared__ float As[F_CHUNK][F_SUB + 4];  // A chunk stored transposed: As[k][m]
+  __shared__ float Bs[F_CHUNK][F_SUB + 4];
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int m0 = blockIdx.y * FBM;
-  const int n0 = blockIdx.x * FBN;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < K; k0 += FBK) {
+  for (int ms = 0; ms < BM; ms += F_SUB) {
+    const int sm = min(F_SUB, BM - ms);
+    const int m0 = blockIdx.y * BM + ms;
+    for (int ns = 0; ns < BN; ns += F_SUB) {
+      const int sn = min(F_SUB, BN - ns);
+      const int n0 = blockIdx.x * BN + ns;
+      float acc[4][4] = {};
+      for (int k0 = 0; k0 < K; k0 += BK) {
+        float part[4][4] = {};
+        for (int c0 = k0; c0 < k0 + BK; c0 += F_CHUNK) {
+          const int kc = min(F_CHUNK, k0 + BK - c0);
+          // Past the sub-tile's edge or the step's end the arrays hold zeros.
+          for (int i = tid; i < F_CHUNK * F_SUB; i += F_THREADS) {
+            const int r = i / F_CHUNK, kk = i % F_CHUNK;
+            As[kk][r] = (r < sm && kk < kc) ? A[static_cast<size_t>(m0 + r) * K + c0 + kk] : 0.f;
+          }
+          for (int i = tid; i < F_CHUNK * F_SUB; i += F_THREADS) {
+            const int kk = i / F_SUB, col = i % F_SUB;
+            Bs[kk][col] = (kk < kc && col < sn) ? B[static_cast<size_t>(c0 + kk) * N + n0 + col]
+                                                : 0.f;
+          }
+          __syncthreads();
+          for (int kk = 0; kk < kc; ++kk) {
+            float a[4], b[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int c = tid + i * F_THREADS;
-      int r = c / FBK, kk = c % FBK;
-      As[kk][r] = A[static_cast<size_t>(m0 + r) * lda + k0 + kk];
-    }
+            for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int c = tid + i * F_THREADS;
-      int kk = c / FBN, col = c % FBN;
-      Bs[kk][col] = B[static_cast<size_t>(k0 + kk) * ldb + n0 + col];
-    }
-    __syncthreads();
+            for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
 #pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      float a[4], b[4];
+            for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+              for (int j = 0; j < 4; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
+          }
+          __syncthreads();
+        }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          const int r = ty * 4 + i, col = tx * 4 + j;
+          if (r < sm && col < sn)
+            C[static_cast<size_t>(m0 + r) * N + n0 + col] = from_float<OutT>(acc[i][j]);
+        }
     }
-    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      C[static_cast<size_t>(m0 + ty * 4 + i) * ldc + n0 + tx * 4 + j] =
-          from_float<OutT>(acc[i][j]);
 }
 
 }  // namespace
@@ -291,19 +318,22 @@ int tcc_matmul_sm90(const void* a, const void* b, void* c, int M, int N, int K, 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// f32 operands. The caller guarantees M % 64 == N % 64 == K % 16 == 0.
-int tcc_matmul_f32(const void* a, const void* b, void* c, int M, int N, int K,
-                   int lda, int ldb, int ldc, int out_bf16, void* stream) {
-  dim3 grid(N / FBN, M / FBM);
+// f32 operands on the caller's tile (bm, bn, bk): any positive tiling with
+// M % bm == N % bn == K % bk == 0, which the caller guarantees, with
+// row-major contiguous operands.
+int tcc_matmul_f32(const void* a, const void* b, void* c, int M, int N, int K, int bm, int bn,
+                   int bk, int out_bf16, void* stream) {
+  if (bm < 1 || bn < 1 || bk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(N / bn, M / bm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* A = static_cast<const float*>(a);
   const auto* B = static_cast<const float*>(b);
   if (out_bf16) {
     mm_f32_kernel<__nv_bfloat16><<<grid, F_THREADS, 0, s>>>(
-        A, B, static_cast<__nv_bfloat16*>(c), K, lda, ldb, ldc);
+        A, B, static_cast<__nv_bfloat16*>(c), N, K, bm, bn, bk);
   } else {
-    mm_f32_kernel<float><<<grid, F_THREADS, 0, s>>>(A, B, static_cast<float*>(c), K,
-                                                    lda, ldb, ldc);
+    mm_f32_kernel<float><<<grid, F_THREADS, 0, s>>>(A, B, static_cast<float*>(c), N, K,
+                                                    bm, bn, bk);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,10 +11,11 @@ The operands' dtype picks the kernel before the launch (:func:`_variant`):
 cores, no TF32 rounding) for f32.
 
 The block arguments keep the JAX package's meaning (clamped to the shape,
-and they must divide it, else ``ValueError``). On a CUDA tensor the bf16
-kernel takes any tile of :data:`SM90_TILES`, each compiled in
-``csrc/matmul.cu``, and :func:`check_sm90_tile` refuses any other before the
-launch; the f32 kernel is compiled for one tile, :data:`KERNEL_BLOCKS_F32`.
+and they must divide it, else ``ValueError``: :func:`check_f32_tile`). On a
+CUDA tensor the bf16 kernel takes any tile of :data:`SM90_TILES`, each
+compiled in ``csrc/matmul.cu``, and :func:`check_sm90_tile` refuses any
+other before the launch; the f32 kernel takes the caller's tiling at run
+time, any positive one that divides the shape, as the JAX kernel does.
 :func:`default_blocks` is the JAX function: a per-variant table,
 :data:`DEFAULT_BLOCKS`, measured by ``chip_smoke.py``'s tile sweep, and
 :data:`_FALLBACK_BLOCKS` for the variants it does not name; given the rows
@@ -42,8 +43,9 @@ SM90_TILES = tuple(
 )
 
 # Measured per-variant default tilings for ``tiled_matmul``, from the tile
-# sweep of chip_smoke.py phase 3 at 4096^3 (kernel times by CUDA events),
-# not guesswork; variants it has not measured take _FALLBACK_BLOCKS.
+# sweep of chip_smoke.py phase 3 at 4096^3 (tiles ranked by the kernels'
+# device time from torch.profiler), not guesswork; variants it has not
+# measured take _FALLBACK_BLOCKS.
 # h100-sxm: NVIDIA H100 80GB HBM3 at 700.00 W, (256, 128, 64) 704.7 TFLOP/s,
 # the fastest of the 16 tiles, against (128, 128, 64)'s 567.4 (PERF.md §6).
 DEFAULT_BLOCKS: dict[str, tuple[int, int, int]] = {
@@ -63,8 +65,6 @@ DEFAULT_BLOCKS_BY_ROWS: dict[str, dict[int, tuple[int, int, int]]] = {
 _FALLBACK_BLOCKS = (128, 128, 64)
 #: ``tiled_matmul``'s default blocks: the fallback tile.
 KERNEL_BLOCKS = _FALLBACK_BLOCKS
-#: The f32 SIMT kernel's tile (f32 operands).
-KERNEL_BLOCKS_F32 = (64, 64, 16)
 VARIANTS = ("sm90", "simt")
 
 
@@ -103,6 +103,19 @@ def check_sm90_tile(blocks) -> None:
                      f"not {blocks}{why}")
 
 
+def check_f32_tile(blocks, M: int, N: int, K: int) -> None:
+    """Raise ``ValueError`` unless ``blocks`` (block_m, block_n, block_k) is
+    a positive tiling that divides (M, K) x (K, N), with the JAX kernel's
+    message: the rule every tiling obeys, and all the f32 kernel asks."""
+    bm, bn, bk = blocks
+    if min(bm, bn, bk) < 1:
+        raise ValueError(f"blocks ({bm},{bn},{bk}) must be positive")
+    if M % bm or N % bn or K % bk:
+        raise ValueError(
+            f"shapes ({M},{K})x({K},{N}) not divisible by blocks ({bm},{bn},{bk})"
+        )
+
+
 def tiled_matmul_plain(a, b, block_k: int, out_dtype=torch.float32):
     """The plain version: walk K in ``block_k`` steps, accumulating f32
     partial products (each bf16 product is exact in f32), and cast once at
@@ -132,11 +145,7 @@ def tiled_matmul(
     block_m = min(block_m, M)
     block_n = min(block_n, N)
     block_k = min(block_k, K)
-    if M % block_m or N % block_n or K % block_k:
-        raise ValueError(
-            f"shapes ({M},{K})x({K},{N}) not divisible by blocks "
-            f"({block_m},{block_n},{block_k})"
-        )
+    check_f32_tile((block_m, block_n, block_k), M, N, K)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return tiled_matmul_plain(a, b, block_k, out_dtype)
     return _launch(a, b, (block_m, block_n, block_k), out_dtype)
@@ -155,19 +164,14 @@ def _launch(a, b, blocks, out_dtype) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("tiled_matmul needs row-major contiguous operands")
     variant = _variant(a.dtype)
-    if variant == "sm90":
+    M, K = a.shape
+    N = b.shape[1]
+    if variant == "sm90":  # the simt kernel takes any tiling tiled_matmul checked
         check_sm90_tile(blocks)
-    elif tuple(blocks) != KERNEL_BLOCKS_F32:
-        raise ValueError(
-            f"the simt kernel is compiled for blocks {KERNEL_BLOCKS_F32}; got {tuple(blocks)} "
-            "(shapes must be multiples of that tile)"
-        )
     # TMA (sm90) reads from 16-byte aligned bases; its row strides, K * 2
     # and N * 2 bytes, are multiples of 16 already.
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("operands must be 16-byte aligned")
-    M, K = a.shape
-    N = b.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     lib = _build.load("matmul")
     out_bf16 = int(out_dtype == torch.bfloat16)
@@ -178,7 +182,7 @@ def _launch(a, b, blocks, out_dtype) -> torch.Tensor:
                                      *blocks, out_bf16, stream)
         else:
             rc = lib.tcc_matmul_f32(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-                                    K, N, N, out_bf16, stream)
+                                    *blocks, out_bf16, stream)
     _build.check(rc, f"tcc_matmul ({variant})")
     _build.count_launch(tiled_matmul, variant)
     return out
