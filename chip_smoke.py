@@ -10,7 +10,9 @@ counts at 0 just before it and read just after:
 1. device: ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    and ``torch.cuda.get_device_name()``;
 2. build: nvcc builds every kernel from ``tpu_cc_manager_torch/csrc``
-   (registers and spills per kernel from ptxas);
+   (registers and spills per kernel from ptxas); the f32 K1's and the simt
+   K4's instances summed up (registers, spills, static shared memory), each
+   without spills;
 3. K1 (``ops/matmul.py``), its tile sweep: at bf16 4096^3, at the rows one
    card of 4 or 8 multiplies in the verify smoke (1024x4096x4096 and
    512x4096x4096) and at 1024x4096x2048, every tile of ``SM90_TILES`` (the
@@ -28,26 +30,33 @@ counts at 0 just before it and read just after:
    512) x (512, 128) at (128, 128, 128), also against ``a @ b`` within that
    test's atol / rtol, 512^3 at (128, 128, 64), (64, 64, 16) and (32, 32,
    32), and 384^3 at (96, 192, 48), each against the plain version at its
-   block_k, its grid N / block_n x M / block_m from the profiler's trace,
+   block_k, one thread-block cluster of cx x cy CTAs per caller tile (the
+   cluster ``tcc_matmul_f32_cluster`` reports, ``f32_cluster``'s), so its
+   grid (N / block_n * cx) x (M / block_m * cy) from the profiler's trace,
    naming the kernel that ran, with events, device time, the plain version,
-   ``torch.mm`` (TF32 off) and the bound at the f32 peak;
+   ``torch.mm`` (TF32 off), the bound at the f32 peak and that bound on the
+   SMs the grid can fill;
 4. K2 (``ops/flash_attention.py``) against its plain version (O and lse):
-   causal and not, S = 63, 200 and 2048, D = 16, 64 and 128, bf16 and f32;
+   causal and not, S = 63, 200 and 2048, D = 16, 64, 72 and 128, bf16 and
+   f32;
    each case names the kernel that ran (``_variant``: bf16 at D = 64 or 128
    must take the wgmma kernel "sm90", the rest the CUDA-core kernel "simt");
    kernel / plain / SDPA / bound times and TFLOP/s at the 8B smoke's, the 1B
    training and a long shape, the simt kernel at ``entry()``'s shape, and
    the shapes phases 11-14 give it (the 8B forward's 32, 16 and 8 heads,
    the 1B step's 16 heads per rank, the 8B smoke's 16 heads per rank at
-   tp = 2); then K3 and K4 (the flash backward):
+   tp = 2), and the simt kernel in f32 at the 1B training shape beside
+   SDPA's f32 forward; then K3 and K4 (the flash backward), over the same
+   cases:
    gradients through the autograd Function against ``flash_backward_plain``
    on the same out and lse over the same grid, each case naming K3's and
    K4's kernels (as K2's), one f32 shape also against the autograd of
    ``reference_attention``; K3 / K4 kernel / plain / bound times at the 1B
    training shape, at S = 2048, D = 128 and at phase 12's 16 heads per rank,
    beside SDPA's backward alone, each also by device time from
-   ``torch.profiler``, and the simt K3 and K4 at the 1B training shape in
-   f32;
+   ``torch.profiler``, and the simt K3 and K4 at the 1B training shape and
+   at S = 2048, D = 128 in f32; at each timed shape two K4 launches must
+   give the same bits;
 5. the matmul smoke through the agent's runner with ``--kernel torch`` and
    ``--kernel cuda`` (the latter must show K1 launches, all on "sm90", at
    the default tiling); each must report ``devices`` =
@@ -338,6 +347,9 @@ LSE_TOL = 1e-4  # lse is f32 on both sides
 # K3/K4's dq, dk, dv, relative to max|plain|: in f32 only the summation order
 # differs; in bf16 both sides round one f32 value to bf16 once.
 K34_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# Head dims of phase 4's correctness loops: the simt kernels' 16 and 72 (no
+# power of two), the sm90 kernels' 64 and 128 in bf16 (simt in f32).
+K_HEAD_DIMS = (16, 64, 72, 128)
 TRANSCRIPT_LIMIT = 1e-2  # the Llama smoke's argmax margin (smoke/llama_infer.py)
 # The 1B training phase: batch x sequence, steps, and the flash-vs-einsum
 # gradient limit (the Llama smoke's flash limit).
@@ -584,18 +596,18 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float, peak_bw: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def sm90_tile_report(log: str) -> dict[tuple, dict]:
-    """Registers and spill bytes of the sm90 K1 kernels from nvcc's
-    ``-Xptxas -v`` output, by (tile, out dtype): {"registers",
-    "spill_stores", "spill_loads"}. The f32-output kernel is the smoke's."""
+def ptxas_report(log: str, pattern: str) -> dict[tuple, dict]:
+    """Registers, spill bytes and static shared memory of every kernel whose
+    mangled name matches ``pattern``, from nvcc's ``-Xptxas -v`` output, by
+    the pattern's groups: {"registers", "spill_stores", "spill_loads",
+    "smem"}."""
     import re
 
     report, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
-            m = re.search(r"mm_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E", line)
-            entry = None if m is None else report.setdefault(
-                (tuple(int(g) for g in m.groups()[:3]), "f32" if m.group(4) == "f" else "bf16"), {})
+            m = re.search(pattern, line)
+            entry = None if m is None else report.setdefault(m.groups(), {"smem": 0})
             continue
         if entry is None:
             continue
@@ -605,6 +617,31 @@ def sm90_tile_report(log: str) -> dict[tuple, dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(m.group(1)) if m else 0
+    return report
+
+
+def sm90_tile_report(log: str) -> dict[tuple, dict]:
+    """The sm90 K1 kernels' ``ptxas_report`` by (tile, out dtype). The
+    f32-output kernel is the smoke's."""
+    found = ptxas_report(log, r"mm_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E")
+    return {(tuple(int(g) for g in k[:3]), "f32" if k[3] == "f" else "bf16"): v
+            for k, v in found.items()}
+
+
+def simt_kernel_report(log: str) -> dict[str, dict]:
+    """The f32 K1's (``mm_f32_kernel``) and the simt K4's
+    (``flash_bwd_dkv_kernel``) ``ptxas_report`` by instance."""
+    found = ptxas_report(log, r"(mm_f32_kernel|flash_bwd_dkv_kernel)I(f|13__nv_bfloat16)"
+                              r"(?:Li(\d+)E)?Lb([01])E(?:Li(\d+)E)?")
+    report = {}
+    for (name, dtype, nq, vec, kc), v in found.items():
+        args = ["f32" if dtype == "f" else "bf16"]
+        if nq:
+            args += [f"D {'<= 64' if nq == '1' else '72-128'}"]
+        args += [f"vec {vec}"] + ([f"k chunk {kc}"] if kc else [])
+        report[f"{name}<{', '.join(args)}>"] = v
     return report
 
 
@@ -758,16 +795,41 @@ def launch_grid(torch, fn, kernel: str) -> list | None:
     return grids[0] if len(grids) == 1 else None
 
 
+def k1_cluster(M: int, N: int, blocks) -> tuple[int, int]:
+    """The cluster ``tcc_matmul_f32_cluster`` reports for ``blocks``; it
+    must be ``ops/matmul.py::f32_cluster``'s and cover one caller tile
+    exactly (cy rows of cx CTAs, each (block_m / cy) x (block_n / cx))."""
+    import ctypes
+
+    from tpu_cc_manager_torch.ops import _build
+    from tpu_cc_manager_torch.ops.matmul import f32_cluster
+
+    cx, cy = ctypes.c_int(), ctypes.c_int()
+    rc = _build.load("matmul").tcc_matmul_f32_cluster(M, N, blocks[0], blocks[1],
+                                                       ctypes.byref(cx), ctypes.byref(cy))
+    got = (cx.value, cy.value)
+    if rc != 0 or got != f32_cluster(M, N, blocks[0], blocks[1]) or \
+            blocks[0] % got[1] or blocks[1] % got[0] or got[0] * got[1] > 16:
+        fail(f"K1 [simt] at {M}x{N} and blocks {blocks}: the C entry's cluster {got} (rc {rc}) "
+             f"is not f32_cluster's {f32_cluster(M, N, blocks[0], blocks[1])}, or does not "
+             f"cover one caller tile exactly")
+    return got
+
+
 def check_k1_f32(torch, peaks, gen) -> list[dict]:
     """Phase 3's f32 K1 ("simt"), which no path runs, at the caller's
     tiling: each case of ``K1_F32_CASES`` against the plain version at its
     block_k (``K1_TOL``), the reference test's case also against ``a @ b``
     within its own atol / rtol, each launch's grid (from the profiler's
-    trace) exactly N / block_n x M / block_m blocks, and each timed (events
-    and device time) beside the plain version, ``torch.mm`` (TF32 off) and
-    the bound at the f32 peak."""
+    trace) exactly one cluster of cx x cy CTAs per caller tile, (N / block_n
+    * cx) x (M / block_m * cy) with the cluster the C entry reports, and
+    each timed (events and device time) beside the plain version,
+    ``torch.mm`` (TF32 off), the bound at the f32 peak, and that bound on
+    only the SMs the launch's CTAs can fill (the grid-capped bound), for
+    this grid and for one CTA per caller tile."""
     from tpu_cc_manager_torch.ops.matmul import tiled_matmul, tiled_matmul_plain
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []
     for M, K, N, blocks in K1_F32_CASES:
         a = torch.randn((M, K), generator=gen, device="cuda", dtype=torch.float32)
@@ -784,8 +846,10 @@ def check_k1_f32(torch, peaks, gen) -> list[dict]:
                 f"{ref_err:.3e} (atol {K1_F32_REF_ATOL:g}, rtol {K1_F32_REF_RTOL:g}) "
                 f"{'ok' if ref_ok else 'MISMATCH'}")
             ok = ok and ref_ok
+        cx, cy = k1_cluster(M, N, blocks)
+        tiles = (N // blocks[1]) * (M // blocks[0])
         grid = launch_grid(torch, lambda: tiled_matmul(a, b, *blocks), "mm_f32_kernel")
-        want_grid = [N // blocks[1], M // blocks[0], 1]
+        want_grid = [N // blocks[1] * cx, M // blocks[0] * cy, 1]
         ms = time_ms(lambda: tiled_matmul(a, b, *blocks))
         dev = device_ms(lambda: tiled_matmul(a, b, *blocks))
         plain = time_ms(lambda: tiled_matmul_plain(a, b, blocks[2]), iters=5, warmup=1)
@@ -793,20 +857,26 @@ def check_k1_f32(torch, peaks, gen) -> list[dict]:
         lib_dev = device_ms(lambda: torch.mm(a, b))
         flops = 2.0 * M * N * K
         b_ms, b_by = bound_ms(flops, (M * K + K * N + M * N) * 4, peaks["f32"], peaks["bw"])
-        say(f"K1 [{ran}] {shape} float32 at blocks {blocks}: grid "
+        # The bound when only min(CTAs, SMs) SMs can work: the FMAs of the
+        # busiest SMs at their share of the peak.
+        capped = {n: b_ms * sms / min(n, sms) for n in (tiles * cx * cy, tiles)}
+        say(f"K1 [{ran}] {shape} float32 at blocks {blocks}: cluster {cx} x {cy}, grid "
             f"{grid if grid is not None else 'not measured'} (want {want_grid}) max_abs_err="
             f"{err:.3e} rel_err={rel:.3e} (tol {K1_TOL:g}) kernel_ms={ms:.4f} (device "
             f"{fmt_ms(dev)}) plain_ms={plain:.4f} torch.mm_ms={lib_event:.4f} (device "
-            f"{fmt_ms(lib_dev)}, TF32 off) bound_ms={b_ms:.5f} ({b_by}) tflops="
-            f"{flops / ms / 1e9:.2f} {'ok' if ok else 'MISMATCH'}")
-        if not ok or (grid is not None and list(grid) != want_grid):
+            f"{fmt_ms(lib_dev)}, TF32 off) bound_ms={b_ms:.5f} ({b_by}) grid-capped bound_ms="
+            f"{capped[tiles * cx * cy]:.5f} at {tiles * cx * cy} CTAs ({capped[tiles]:.5f} at "
+            f"one CTA a tile) tflops={flops / ms / 1e9:.2f} {'ok' if ok else 'MISMATCH'}")
+        if not ok or grid is None or list(grid) != want_grid:
             fail(f"K1 [{ran}, want simt] at {shape} and blocks {blocks}: disagrees with its "
                  f"plain version or the reference, or launched the grid {grid}, not {want_grid}")
         cases.append(dict(variant="simt", shape=[M, K, N], blocks=list(blocks), max_abs_err=err,
                           ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                           library_ms=lib_event if lib_dev is None else lib_dev,
                           library_event_ms=lib_event, library_call="torch.mm (f32, TF32 off)",
-                          grid=grid))
+                          grid=grid, cluster=[cx, cy],
+                          grid_capped_bound_ms=capped[tiles * cx * cy],
+                          one_cta_a_tile_bound_ms=capped[tiles]))
         del a, b, ref
     return cases
 
@@ -982,7 +1052,7 @@ def check_k2(torch, peaks) -> dict:
 
     for causal in (True, False):
         for S in (63, 200, 2048):
-            for D in (16, 64, 128):
+            for D in K_HEAD_DIMS:
                 for dtype in (torch.bfloat16, torch.float32):
                     compare(*inputs(2, 4, S, D, dtype), causal)
 
@@ -1016,6 +1086,26 @@ def check_k2(torch, peaks) -> dict:
         timed.append(dict(variant=variant, shape=[B, H, S, D], max_abs_err=err, ms=ms,
                           device_ms=dev, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                           library_ms=lib))
+    # The simt K2 in f32 at the 1B training shape, which no path runs, beside
+    # SDPA's f32 forward, against the f32 peak.
+    B, H, S, D = 4, 32, 1024, 64
+    q, k, v = inputs(B, H, S, D, torch.float32)
+    err, variant = compare(q, k, v, True)
+    ms = time_ms(lambda: flash_forward(q, k, v, True))
+    dev = device_ms(lambda: flash_forward(q, k, v, True))
+    plain = time_ms(lambda: flash_forward_plain(q, k, v, True), iters=3, warmup=1)
+    lib_event = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    lib_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    b_ms, b_by = bound_ms(flops, 4.0 * B * H * S * D * 4 + B * H * S * 4, peaks["f32"],
+                          peaks["bw"])
+    say(f"K2 [{variant}] timing B={B} H={H} S={S} D={D} float32 causal: kernel_ms={ms:.4f} "
+        f"(device {fmt_ms(dev)}) plain_ms={plain:.4f} sdpa_ms={lib_event:.4f} (device "
+        f"{fmt_ms(lib_dev)}, f32) bound_ms={b_ms:.5f} ({b_by}) tflops={flops / ms / 1e9:.2f}")
+    timed.append(dict(variant=variant, shape=[B, H, S, D], dtype="float32", max_abs_err=err,
+                      ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=lib_event if lib_dev is None else lib_dev,
+                      library_event_ms=lib_event, library_call="SDPA forward (f32)"))
     return timed
 
 
@@ -1064,7 +1154,7 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
 
     for causal in (True, False):
         for S in (63, 200, 2048):
-            for D in (16, 64, 128):
+            for D in K_HEAD_DIMS:
                 for dtype in (torch.bfloat16, torch.float32):
                     compare(*inputs(2, 4, S, D, dtype), causal)
 
@@ -1082,18 +1172,26 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
     timed3, timed4 = [], []
     # The Llama-3.2-1B training step's attention, a long sequence, then
     # phase 12's 1B step on its 16 heads per rank, in bf16 (the sm90
-    # kernels); then the training shape in f32, the simt kernels, which no
-    # path runs, timed against the f32 peak.
+    # kernels); then the training shape and the long one in f32, the simt
+    # kernels, which no path runs, timed against the f32 peak.
     bf16, f32 = torch.bfloat16, torch.float32
     for B, H, S, D, dtype in ((4, 32, 1024, 64, bf16), (1, 32, 2048, 128, bf16),
                               (TRAIN_BATCH, 32 // GLOO_TP, TRAIN_SEQ, 64, bf16),
-                              (4, 32, 1024, 64, f32)):
+                              (4, 32, 1024, 64, f32), (1, 32, 2048, 128, f32)):
         q, k, v, g = inputs(B, H, S, D, dtype)
         peak = peaks["bf16"] if dtype == bf16 else peaks["f32"]
         errs, (v3, v4) = compare(q, k, v, g, True)
         out, lse = fa.flash_forward(q, k, v, True)
         delta = fa.attention_delta(out, g)
         args = (q, k, v, g, lse, delta, True)
+        # One summation order and no atomics: two launches, the same bits.
+        first, again = fa.flash_backward_dkv(*args), fa.flash_backward_dkv(*args)
+        same = all(torch.equal(x, y) for x, y in zip(first, again))
+        say(f"K4 [{v4}] B={B} H={H} S={S} D={D} {str(dtype)[6:]}: two launches "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"K4 [{v4}] gave other dK or dV bits on a second launch")
+        del first, again
         k3_ms = time_ms(lambda: fa.flash_backward_dq(*args))
         k4_ms = time_ms(lambda: fa.flash_backward_dkv(*args))
         k3_dev = device_ms(lambda: fa.flash_backward_dq(*args))
@@ -4077,11 +4175,27 @@ def main(argv: list[str] | None = None) -> int:
     built = _build.build()
     say(f"build: {json.dumps({k: round(v, 2) for k, v in built.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s into {_build.build_dir()}")
+    simt = {}
     for name in _build.SIGNATURES:
-        for line in _build.build_log(name).splitlines():
+        log = _build.build_log(name)
+        for line in log.splitlines():
             # ptxas also warns here when it has to serialize wgmma groups.
             if any(key in line for key in ("registers", "spill", "Compiling entry", "wgmma")):
                 say(f"ptxas[{name}]: {line.strip()}")
+        simt.update(simt_kernel_report(log))
+    # The f32 K1 and the simt K4 (dynamic shared memory: their launches).
+    for kernel, r in sorted(simt.items()):
+        say(f"ptxas {kernel}: {r.get('registers')} registers, spill stores "
+            f"{r.get('spill_stores')} / loads {r.get('spill_loads')} bytes, {r['smem']} bytes "
+            f"of static shared memory")
+    from tpu_cc_manager_torch.ops.flash_attention import dkv_simt_smem_bytes
+
+    say("simt K4 dynamic shared memory a block: " + ", ".join(
+        f"{dtype} D = {D}: {dkv_simt_smem_bytes(D, size)} bytes"
+        for dtype, size in (("f32", 4), ("bf16", 2)) for D in (64, 72, 128)))
+    if len(simt) != 16 or any(r.get("spill_stores") != 0 or r.get("spill_loads") != 0
+                              for r in simt.values()):
+        fail(f"the f32 K1 and simt K4 instances did not all build without spills: {simt}")
 
     clock.lap("phase 2")
     # --- 3. and 4. kernels against their plain versions ----------------------

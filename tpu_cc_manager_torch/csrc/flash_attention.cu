@@ -39,22 +39,26 @@
 // and the sums keep one order, so the result is deterministic. K3 is one
 // block per (b*h, 32-query tile) holding the Q and dO rows, lse and delta,
 // streaming 32-key K/V tiles up to the diagonal; 8 threads own one query row
-// and keep D/8 dQ columns in f32 registers. K4 is one block per (b*h, 32-key
+// and keep D/8 dQ columns in f32 registers. K4 is one block per (b*h, 64-key
 // tile) holding K and V, streaming Q/dO tiles from the first tile that holds
-// a query at or after the block's first key (the TPU kernel's causal start,
-// (kb*32)/32); 8 threads own one key row with D/8 columns each of dK and dV.
-// Masks as K2: q_pos < S, k_pos < S and causal k_pos <= q_pos set s to
-// NEG_INF, so P, and with it every contribution of a phantom row or key, is
-// exactly 0; rows past S are never written.
+// a query at or after the block's first key (the TPU kernel's causal start)
+// through a cp.async ring (see flash_bwd_dkv_kernel). Masks as K2: q_pos <
+// S, k_pos < S and causal k_pos <= q_pos set s to NEG_INF, so P, and with it
+// every contribution of a phantom row or key, is exactly 0; rows past S are
+// never written.
 //
 // What bounds K3/K4 on the H100: at the Llama-3.2-1B training shape
-// (B=4, H=32, S=1024, D=64, bf16, causal) K3 does 3 and K4 4 products of
+// (B=4, H=32, S=1024, D=64, causal) K3 does 3 and K4 4 products of
 // 2*S(S+1)/2*D operations per (b, h) on 5 and 6 tensors of B*H*S*D values;
-// at about 300 operations per byte the tensor cores would be the limit. Like
-// K2 these first versions run every product in f32 on the CUDA cores from
-// tiles staged in shared memory, so they are operation-bound far above the
-// tensor-core bound. The sm90 variants below move K3's and K4's products
-// onto wgmma.
+// at about 300 operations per byte in bf16 the tensor cores would be the
+// limit, and the sm90 variants below run K3's and K4's products there. The
+// simt variants keep f32 (wgmma would round it to TF32), so they are bound
+// by the CUDA cores' 67 TFLOP/s: 0.513 ms for K4 in f32 at that shape. K3's
+// first version spends two shared-memory loads on each FMA and waits for
+// each K/V tile between two barriers; K4's redesign (PR 17) spends one load
+// on 4 FMAs in S^T and dP^T and 8 NQ loads on 32 NQ in dV and dK, from
+// registers that hold 4 x 4 blocks of the products, and keeps the next
+// query tile's copy in flight while it computes.
 //
 // D may be any multiple of 8 up to 128 (the wrappers check). Shared memory
 // exceeds 48 KB at D=128, so each entry raises its kernel's dynamic limit.
@@ -66,7 +70,7 @@
 // other D. What bounds attention at the
 // training shape is the tensor cores (about 300 operations per byte), and
 // the kernels above reach them not at all: their products are f32 FMAs on
-// the CUDA cores, two shared-memory loads each. The sm90 kernels run every
+// the CUDA cores. The sm90 kernels run every
 // product as wgmma from shared-memory tiles that TMA loads (helpers and the
 // layout contract in sm90.cuh), with a producer warp keeping a two-stage
 // ring full while consumer warpgroups of 64 rows compute:
@@ -103,17 +107,14 @@
 
 namespace {
 
-constexpr int BQ = 32;       // query rows per block (K2, K3) or per streamed tile (K4)
-constexpr int BKV = 32;      // keys per streamed tile (K2, K3) or per block (K4)
-constexpr int TPR = 8;       // threads per query (K2, K3) or key (K4) row
+constexpr int BQ = 32;       // query rows per block (K2, K3)
+constexpr int BKV = 32;      // keys per streamed tile (K2, K3)
+constexpr int TPR = 8;       // threads per query row (K2, K3)
 constexpr int THREADS = BQ * TPR;  // 256
 constexpr int MAXD = 128;
 constexpr int KEYS_PER_THREAD = BKV / TPR;  // 4 (K2, K3)
-constexpr int QUERIES_PER_THREAD = BQ / TPR;  // 4 (K4)
 constexpr int COLS_PER_THREAD = MAXD / TPR; // up to 16 accumulator columns
 constexpr float NEG_INF = -1e30f;
-
-static_assert(BQ == BKV, "K4's causal start (kb*BKV)/BQ assumes square tiles");
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -147,8 +148,9 @@ __host__ __device__ constexpr size_t fwd_smem_floats(int D) {
 }
 
 __host__ __device__ constexpr size_t bwd_smem_floats(int D) {
-  // Q, dO, K and V tiles (32 x D+1 each), P and dS tiles (32 x 33 each; K3
-  // uses only dS), lse and delta (32 each, K4)
+  // K3: Q, dO, K and V tiles (32 x D+1 each), P and dS tiles (32 x 33 each;
+  // it uses only dS), lse and delta (32 each; unused, the layout K3 shared
+  // with the first K4)
   return 4 * static_cast<size_t>(BQ) * (D + 1) + 2 * static_cast<size_t>(BQ) * (BKV + 1) +
          2 * static_cast<size_t>(BQ);
 }
@@ -346,102 +348,241 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// K4: dK and dV for one (b*h, 32-key tile).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// K4, simt variant: dK and dV for one (b*h, 64-key tile), f32 FMAs on the
+// CUDA cores. K and V stay in shared memory in f32; 32-query tiles stream
+// from the causal start (kb * 64) / 32 through a two-stage ring that
+// cp.async keeps one tile ahead: Q and dO in the input type, lse and delta
+// in f32, zeros past S. The 256 threads are 16 key groups (keys tk + 16 a,
+// a < 4) by 16 lanes tl:
+// - S^T and dP^T: thread (tk, tl) owns keys tk + 16 a x queries tl and
+//   tl + 16, walking D in float4 reads of K, V, Q and dO rows (rows padded
+//   by 16 bytes, so the 8 rows a quarter-warp reads fall in distinct banks;
+//   a key group's 16 lanes read the same K and V row): 64 FMAs per 12
+//   loads;
+// - P^T = exp2(S^T * scale * log2e - lse * log2e) and dS^T = P^T (dP^T -
+//   delta) * scale under the forward's masks (only on the diagonal and
+//   ragged tiles), written once to shared memory by query, the thread's four
+//   keys adjacent;
+// - dV += P^T dO and dK += dS^T Q: thread (tk, tl) owns keys tk + 16 a x
+//   columns 4 (tl + 16 c) .. + 3 (c < NQ = ceil(D / 64)) of both
+//   accumulators, in f32 registers across the walk; per query a float4 of
+//   P^T, of dS^T and of each of its dO and Q columns: 32 NQ FMAs per 2 + 2
+//   NQ loads.
+// Every sum runs in one order (d, then queries in order), no atomics.
+// 32-query tiles let the ring hold D = 128 in f32 (153 KB) and measured 3%
+// faster than 64-query tiles at D = 64 (NVIDIA H100 80GB HBM3, 700 W;
+// tpu_cc_manager_torch/bench/kernel_variants.py).
+// VEC: q and dO start on 16 bytes, so the ring fills with 16-byte cp.async;
+// otherwise Q and dO are copied element by element before the tile's wait.
+
+constexpr int DKV_BKV = 64;                 // keys per block
+constexpr int DKV_BQ = 32;                  // queries per streamed tile
+constexpr int DKV_THREADS = 256;            // 16 key groups x 16 lanes
+constexpr int DKV_LDP = DKV_BKV + 4;        // a query's row of P^T (or dS^T), padded
+
+// K and V (64 x D+4 f32 each), the two stages' Q and dO (32 rows of D
+// elements + 16 bytes each), P^T and dS^T (32 x 68 f32 each), the two
+// stages' lse and delta (32 f32 each). ops/flash_attention.py::
+// dkv_simt_smem_bytes is the same count.
+__host__ __device__ constexpr size_t dkv_smem_bytes(int D, int elem_bytes) {
+  return 2 * static_cast<size_t>(DKV_BKV) * (D + 4) * 4 +
+         4 * static_cast<size_t>(DKV_BQ) * (D * elem_bytes + 16) +
+         2 * static_cast<size_t>(DKV_BQ) * DKV_LDP * 4 + 4 * static_cast<size_t>(DKV_BQ) * 4;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+template <typename T, int NQ, bool VEC>
+__global__ void __launch_bounds__(DKV_THREADS)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv, int S, int D,
                          float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  const int ldp = BQ + 1;
-  float* Ks = smem;
-  float* Vs = Ks + BKV * ld;
-  float* Qs = Vs + BKV * ld;
-  float* dOs = Qs + BQ * ld;
-  float* Ps = dOs + BQ * ld;    // (key, query)
-  float* dSs = Ps + BKV * ldp;  // (key, query)
-  float* lse_s = dSs + BKV * ldp;
-  float* delta_s = lse_s + BQ;
+  constexpr int QPT = DKV_BQ / 16;  // queries a thread takes in S^T and dP^T
+  constexpr int E = 16 / sizeof(T);  // elements in 16 bytes
+  extern __shared__ float4 dkv_smem[];
+  const int ldk = D + 4;             // a K or V row (f32)
+  const int ldq = D + E;             // a Q or dO row (T)
+  float* Ks = reinterpret_cast<float*>(dkv_smem);
+  float* Vs = Ks + DKV_BKV * ldk;
+  float* Ps = Vs + DKV_BKV * ldk;    // P^T by query: query ql at ql * DKV_LDP
+  float* dSs = Ps + DKV_BQ * DKV_LDP;
+  float* vec = dSs + DKV_BQ * DKV_LDP;  // stage s: lse at s * 2 * DKV_BQ, delta after it
+  T* ring = reinterpret_cast<T*>(vec + 4 * DKV_BQ);  // stage s: Q, then dO
 
-  const int kb = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int k_first = blockIdx.y * DKV_BKV;
   const size_t base = static_cast<size_t>(bh) * S * D;
   const int tid = threadIdx.x;
-  const int row = tid / TPR;   // key row; its 8 threads sit in one warp
-  const int c = tid % TPR;
-  const int k_pos = kb * BKV + row;
-  const int nd = D / TPR;
+  const int tk = tid / 16, tl = tid % 16;
+  const int pieces = D / E;          // 16-byte pieces of a row
+  const int q_start = causal ? k_first / DKV_BQ : 0;
+  const int n = (S + DKV_BQ - 1) / DKV_BQ - q_start;
 
-  load_tile(Ks, ld, k + base, kb * BKV, BKV, S, D);
-  load_tile(Vs, ld, v + base, kb * BKV, BKV, S, D);
-
-  float dk_acc[COLS_PER_THREAD];
-  float dv_acc[COLS_PER_THREAD];
-#pragma unroll
-  for (int i = 0; i < COLS_PER_THREAD; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
-
-  const int num_q_blocks = (S + BQ - 1) / BQ;
-  // Causal: query tiles strictly before this key tile contribute nothing.
-  const int start = causal ? (kb * BKV) / BQ : 0;
-
-  for (int qb = start; qb < num_q_blocks; ++qb) {
-    __syncthreads();  // the previous tile's reads are done (and K/V are staged)
-    load_tile(Qs, ld, q + base, qb * BQ, BQ, S, D);
-    load_tile(dOs, ld, dout + base, qb * BQ, BQ, S, D);
-    if (tid < BQ) {
-      const int p = qb * BQ + tid;
-      const size_t off = static_cast<size_t>(bh) * S + p;
-      lse_s[tid] = p < S ? lse[off] : 0.0f;
-      delta_s[tid] = p < S ? delta[off] : 0.0f;
-    }
-    __syncthreads();
-
-    const float* krow = Ks + row * ld;
-    const float* vrow = Vs + row * ld;
-#pragma unroll
-    for (int j = 0; j < QUERIES_PER_THREAD; ++j) {
-      const int qr = c + TPR * j;
-      const int q_pos = qb * BQ + qr;
-      const float* qrow = Qs + qr * ld;
-      const float* dorow = dOs + qr * ld;
-      float s = 0.0f, dp = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qrow[d], krow[d], s);
-        dp = fmaf(dorow[d], vrow[d], dp);
+  // Query tile q_start + i into stage i % 2.
+  auto issue = [&](int i) {
+    const int q0 = (q_start + i) * DKV_BQ;
+    T* Qs = ring + (i & 1) * 2 * DKV_BQ * ldq;
+    T* dOs = Qs + DKV_BQ * ldq;
+    for (int e = tid; e < DKV_BQ * pieces; e += DKV_THREADS) {
+      const int r = e / pieces, c = (e % pieces) * E;
+      const bool in = q0 + r < S;
+      const size_t off = base + static_cast<size_t>(q0 + r) * D + c;
+      if constexpr (VEC) {
+        sm90::cp_async_16(Qs + r * ldq + c, in ? q + off : q, in ? 16 : 0);
+        sm90::cp_async_16(dOs + r * ldq + c, in ? dout + off : dout, in ? 16 : 0);
+      } else {
+        for (int t = 0; t < E; ++t) {
+          Qs[r * ldq + c + t] = in ? q[off + t] : from_float<T>(0.0f);
+          dOs[r * ldq + c + t] = in ? dout[off + t] : from_float<T>(0.0f);
+        }
       }
-      bool valid = q_pos < S && k_pos < S;
-      if (causal) valid = valid && (k_pos <= q_pos);
-      const float p = expf((valid ? s * scale : NEG_INF) - lse_s[qr]);
-      Ps[row * ldp + qr] = p;
-      dSs[row * ldp + qr] = p * (dp - delta_s[qr]) * scale;
     }
-    __syncwarp();  // the key row's P and dS values come from lanes of this warp
+    float* ls = vec + (i & 1) * 2 * DKV_BQ;
+    for (int e = tid; e < DKV_BQ; e += DKV_THREADS) {
+      const bool in = q0 + e < S;
+      const size_t off = static_cast<size_t>(bh) * S + q0 + e;
+      sm90::cp_async_4(ls + e, in ? lse + off : lse, in ? 4 : 0);
+      sm90::cp_async_4(ls + DKV_BQ + e, in ? delta + off : delta, in ? 4 : 0);
+    }
+  };
 
-    for (int qr = 0; qr < BQ; ++qr) {
-      const float p = Ps[row * ldp + qr];
-      const float ds = dSs[row * ldp + qr];
-      const float* dorow = dOs + qr * ld + c;
-      const float* qrow = Qs + qr * ld + c;
+  if (n > 0) issue(0);
+  sm90::cp_async_commit();
+  for (int e = tid; e < DKV_BKV * D; e += DKV_THREADS) {  // K and V, resident, in f32
+    const int r = e / D, d = e % D, p = k_first + r;
+    const bool in = p < S;
+    const size_t off = base + static_cast<size_t>(p) * D + d;
+    Ks[r * ldk + d] = in ? to_float(k[off]) : 0.0f;
+    Vs[r * ldk + d] = in ? to_float(v[off]) : 0.0f;
+  }
+
+  float dk_acc[4][NQ][4], dv_acc[4][NQ][4];
 #pragma unroll
-      for (int i = 0; i < COLS_PER_THREAD; ++i) {
-        if (i < nd) {
-          dv_acc[i] = fmaf(p, dorow[TPR * i], dv_acc[i]);
-          dk_acc[i] = fmaf(ds, qrow[TPR * i], dk_acc[i]);
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NQ; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[a][c][e] = dv_acc[a][c][e] = 0.0f;
+  const float scale_log2 = scale * sm90::LOG2E;
+
+  for (int i = 0; i < n; ++i) {
+    sm90::cp_async_wait<0>();
+    __syncthreads();  // tile i (and K, V) in place; every thread done with tile i - 1
+    if (i + 1 < n) issue(i + 1);
+    sm90::cp_async_commit();
+    const int q0 = (q_start + i) * DKV_BQ;
+    const T* Qs = ring + (i & 1) * 2 * DKV_BQ * ldq;
+    const T* dOs = Qs + DKV_BQ * ldq;
+    const float* lse_s = vec + (i & 1) * 2 * DKV_BQ;
+    const float* delta_s = lse_s + DKV_BQ;
+
+    float st[4][QPT], dpt[4][QPT];  // S^T and dP^T: keys tk + 16 a x queries tl + 16 b
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < QPT; ++b) st[a][b] = dpt[a][b] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 kf[4], vf[4], qf[QPT], of[QPT];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        kf[a] = load4(Ks + (tk + 16 * a) * ldk + d);
+        vf[a] = load4(Vs + (tk + 16 * a) * ldk + d);
+      }
+#pragma unroll
+      for (int b = 0; b < QPT; ++b) {
+        qf[b] = load4(Qs + (tl + 16 * b) * ldq + d);
+        of[b] = load4(dOs + (tl + 16 * b) * ldq + d);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < QPT; ++b) {
+          st[a][b] = dot4(kf[a], qf[b], st[a][b]);
+          dpt[a][b] = dot4(vf[a], of[b], dpt[a][b]);
+        }
+    }
+
+    // Masks only where a (query, key) pair can be invalid: the ragged tiles
+    // and the tiles that reach above the diagonal.
+    const bool masked = q0 + DKV_BQ > S || k_first + DKV_BKV > S ||
+                        (causal && q0 < k_first + DKV_BKV - 1);
+#pragma unroll
+    for (int b = 0; b < QPT; ++b) {
+      const int ql = tl + 16 * b;
+      const int q_pos = q0 + ql;
+      const float lse2 = lse_s[ql] * sm90::LOG2E;
+      const float dl = delta_s[ql];
+      float p[4], ds[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int k_pos = k_first + tk + 16 * a;
+        float x = st[a][b] * scale_log2 - lse2;
+        if (masked && (q_pos >= S || k_pos >= S || (causal && k_pos > q_pos))) x = NEG_INF;
+        p[a] = exp2f(x);
+        ds[a] = p[a] * (dpt[a][b] - dl) * scale;
+      }
+      *reinterpret_cast<float4*>(Ps + ql * DKV_LDP + tk * 4) = make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(dSs + ql * DKV_LDP + tk * 4) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();  // P^T and dS^T of the tile in place
+
+#pragma unroll 2
+    for (int ql = 0; ql < DKV_BQ; ++ql) {
+      const float4 p4 = load4(Ps + ql * DKV_LDP + tk * 4);
+      const float4 ds4 = load4(dSs + ql * DKV_LDP + tk * 4);
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) {
+        const int col = 4 * (tl + 16 * c);
+        if (col < D) {
+          const float4 o = load4(dOs + ql * ldq + col);
+          const float4 qv = load4(Qs + ql * ldq + col);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float pa = sm90::lane_of(p4, a), da = sm90::lane_of(ds4, a);
+            dv_acc[a][c][0] = fmaf(pa, o.x, dv_acc[a][c][0]);
+            dv_acc[a][c][1] = fmaf(pa, o.y, dv_acc[a][c][1]);
+            dv_acc[a][c][2] = fmaf(pa, o.z, dv_acc[a][c][2]);
+            dv_acc[a][c][3] = fmaf(pa, o.w, dv_acc[a][c][3]);
+            dk_acc[a][c][0] = fmaf(da, qv.x, dk_acc[a][c][0]);
+            dk_acc[a][c][1] = fmaf(da, qv.y, dk_acc[a][c][1]);
+            dk_acc[a][c][2] = fmaf(da, qv.z, dk_acc[a][c][2]);
+            dk_acc[a][c][3] = fmaf(da, qv.w, dk_acc[a][c][3]);
+          }
         }
       }
     }
   }
 
-  if (k_pos < S) {
-    const size_t off = base + static_cast<size_t>(k_pos) * D + c;
 #pragma unroll
-    for (int i = 0; i < COLS_PER_THREAD; ++i) {
-      if (i < nd) {
-        dk[off + TPR * i] = from_float<T>(dk_acc[i]);
-        dv[off + TPR * i] = from_float<T>(dv_acc[i]);
+  for (int a = 0; a < 4; ++a) {
+    const int k_pos = k_first + tk + 16 * a;
+    if (k_pos >= S) continue;
+#pragma unroll
+    for (int c = 0; c < NQ; ++c) {
+      const int col = 4 * (tl + 16 * c);
+      if (col >= D) continue;
+      const size_t off = base + static_cast<size_t>(k_pos) * D + col;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk[off + e] = from_float<T>(dk_acc[a][c][e]);
+        dv[off + e] = from_float<T>(dv_acc[a][c][e]);
       }
     }
   }
@@ -482,21 +623,37 @@ int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int NQ, bool VEC>
+int launch_bwd_dkv_simt(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, void* dk, void* dv, int BH, int S,
+                        int D, float scale, int causal, void* stream) {
+  const size_t bytes = dkv_smem_bytes(D, sizeof(T));
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, NQ, VEC>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(BH, (S + DKV_BKV - 1) / DKV_BKV);  // key tile 0, the longest causal walk, first
+  flash_bwd_dkv_kernel<T, NQ, VEC><<<grid, DKV_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, D,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dk, void* dv, int BH,
                    int S, int D, float scale, int causal, void* stream) {
-  const size_t bytes = bwd_smem_floats(D) * sizeof(float);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + BKV - 1) / BKV, BH);
-  flash_bwd_dkv_kernel<T><<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, D, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dout) % 16 == 0;
+  if (D <= 64)
+    return vec ? launch_bwd_dkv_simt<T, 1, true>(q, k, v, dout, lse, delta, dk, dv, BH, S, D,
+                                                 scale, causal, stream)
+               : launch_bwd_dkv_simt<T, 1, false>(q, k, v, dout, lse, delta, dk, dv, BH, S, D,
+                                                  scale, causal, stream);
+  return vec ? launch_bwd_dkv_simt<T, 2, true>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale,
+                                               causal, stream)
+             : launch_bwd_dkv_simt<T, 2, false>(q, k, v, dout, lse, delta, dk, dv, BH, S, D,
+                                                scale, causal, stream);
 }
-
 
 // ---------------------------------------------------------------------------
 // The Hopper variants of K2 and K4 (bf16, D = 64 or 128): wgmma fed by TMA

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash kernels K2, K3 and K4
 // (flash_attention.cu) and of the tiled matmul K1 (matmul.cu): TMA tensor
 // maps and loads, mbarriers, and wgmma with the shared-memory descriptors
-// that match what TMA writes.
+// that match what TMA writes; and the cp.async copies that feed the f32
+// ("simt") K1 and K4.
 //
 // Layout contract. Every bf16 tile in shared memory is written by TMA with
 // the 128-byte swizzle: a box is 64 columns (128 bytes) by R rows, row r at
@@ -105,6 +106,44 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async (the simt kernels' copy rings)
+// ---------------------------------------------------------------------------
+
+// Copy 16 bytes (4 bytes for cp_async_4) from global src to shared dst
+// without the registers; the bytes past src_bytes (0 or the full size) are
+// zero-filled, and with src_bytes = 0 nothing is read. Both addresses must
+// be aligned to the size.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// Close the group of copies this thread issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight. The
+// copies of other threads become visible after a __syncthreads() that
+// follows every thread's wait.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Component i (0-3, known at compile time once unrolled) of a float4.
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 // ---------------------------------------------------------------------------

@@ -65,12 +65,14 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 
 #: C entry points of each library: name -> {symbol: argtypes}.
 SIGNATURES: dict[str, dict[str, list]] = {
     "matmul": {
         "tcc_matmul_sm90": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "tcc_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "tcc_matmul_f32_cluster": [_I, _I, _I, _I, _IP, _IP],
     },
     "flash_attention": {
         "tcc_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],

@@ -24,8 +24,10 @@ failure):
   dS) to bf16 before the products that take them, as ``reference_attention``
   and the einsum Llama path round P before PV (and autograd of the einsum
   rounds dS); the plain versions do the same for these inputs;
-- ``"simt"`` for f32 and every other D: the first kernels, with every
-  product in f32 on the CUDA cores.
+- ``"simt"`` for f32 and every other D: every product in f32 on the CUDA
+  cores. K4's is register-tiled behind a cp.async ring (64 keys a block,
+  32-query tiles, shared memory :func:`dkv_simt_smem_bytes`); K2's and
+  K3's are the first kernels.
 
 ``block_q``/``block_k`` tile the plain versions as they tile the Pallas
 kernels (rounded up to a multiple of 8 and clamped, :func:`_block_for`). The
@@ -50,6 +52,20 @@ def _variant(dtype, head_dim: int) -> str:
     bf16 at D = 64 or 128, else ``"simt"``. f32 stays on the CUDA cores:
     wgmma would compute it in TF32."""
     return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "simt"
+
+
+#: The simt K4's block: keys per block and queries per streamed tile.
+DKV_SIMT_KEYS, DKV_SIMT_QUERIES = 64, 32
+
+
+def dkv_simt_smem_bytes(head_dim: int, itemsize: int) -> int:
+    """The simt K4's dynamic shared memory (csrc/flash_attention.cu::
+    dkv_smem_bytes): K and V resident in f32 (64 rows of D + 4), the two
+    stages' Q and dO in the input type (32 rows of D elements + 16 bytes),
+    P^T and dS^T (32 x 68 f32 each), the two stages' lse and delta."""
+    keys, queries = DKV_SIMT_KEYS, DKV_SIMT_QUERIES
+    return (2 * keys * (head_dim + 4) * 4 + 4 * queries * (head_dim * itemsize + 16)
+            + 2 * queries * (keys + 4) * 4 + 4 * queries * 4)
 
 
 def _rounds_p(q) -> bool:

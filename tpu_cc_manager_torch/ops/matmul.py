@@ -8,7 +8,8 @@ a CUDA input either launches a kernel or raises. The matmul smoke's
 
 The operands' dtype picks the kernel before the launch (:func:`_variant`):
 ``"sm90"`` (wgmma fed by TMA) for bf16, ``"simt"`` (f32 FMAs on the CUDA
-cores, no TF32 rounding) for f32.
+cores, no TF32 rounding) for f32, which spreads each caller tile over one
+thread-block cluster (:func:`f32_cluster`).
 
 The block arguments keep the JAX package's meaning (clamped to the shape,
 and they must divide it, else ``ValueError``: :func:`check_f32_tile`). On a
@@ -114,6 +115,40 @@ def check_f32_tile(blocks, M: int, N: int, K: int) -> None:
         raise ValueError(
             f"shapes ({M},{K})x({K},{N}) not divisible by blocks ({bm},{bn},{bk})"
         )
+
+
+#: The f32 kernel's cluster rule (csrc/matmul.cu::f32_cluster): clusters of
+#: at most F32_MAX_CLUSTER CTAs (the portable size), launches of about
+#: F32_TARGET_CTAS CTAs (an H100 SXM's SMs) or fewer, sub-tiles no narrower
+#: than F32_MIN_SIDE.
+F32_MAX_CLUSTER, F32_TARGET_CTAS, F32_MIN_SIDE = 8, 132, 16
+
+
+def f32_cluster(M: int, N: int, block_m: int, block_n: int) -> tuple[int, int]:
+    """The cluster ``(cx, cy)`` the f32 kernel launches for ``block_m x
+    block_n`` tiles of an M x N output, as ``tcc_matmul_f32_cluster`` gives
+    it: cx CTAs along N and cy along M share one caller tile, each owning
+    its ``(block_m / cy) x (block_n / cx)`` sub-tile, so the grid is
+    ``(N / block_n * cx) x (M / block_m * cy)``. The size is the largest
+    power of two up to :data:`F32_MAX_CLUSTER` that keeps the launch at
+    :data:`F32_TARGET_CTAS` CTAs or fewer; the split halves the sub-tile's
+    longer side (N on a tie) while it divides and stays
+    :data:`F32_MIN_SIDE` wide."""
+    tiles = (M // block_m) * (N // block_n)
+    c = 1
+    while 2 * c <= F32_MAX_CLUSTER and tiles * 2 * c <= F32_TARGET_CTAS:
+        c *= 2
+    x = y = 1
+    while x * y < c:
+        can_x = block_n % (2 * x) == 0 and block_n // (2 * x) >= F32_MIN_SIDE
+        can_y = block_m % (2 * y) == 0 and block_m // (2 * y) >= F32_MIN_SIDE
+        if can_x and (block_n // x >= block_m // y or not can_y):
+            x *= 2
+        elif can_y:
+            y *= 2
+        else:
+            break
+    return x, y
 
 
 def tiled_matmul_plain(a, b, block_k: int, out_dtype=torch.float32):
