@@ -11,8 +11,12 @@ counts at 0 just before it and read just after:
    and ``torch.cuda.get_device_name()``;
 2. build: nvcc builds every kernel from ``tpu_cc_manager_torch/csrc``
    (registers and spills per kernel from ptxas); the f32 K1's and the simt
-   K4's instances summed up (registers, spills, static shared memory), each
-   without spills;
+   K2's, K3's and K4's instances summed up (registers, spills, static
+   shared memory), each without spills, and each simt flash instance
+   launched once under ``torch.profiler``, its dynamic shared memory (the
+   trace's, less the static) equal to its Python count
+   (``fwd_simt_smem_bytes``, ``dq_simt_smem_bytes``,
+   ``dkv_simt_smem_bytes``);
 3. K1 (``ops/matmul.py``), its tile sweep: at bf16 4096^3, at the rows one
    card of 4 or 8 multiplies in the verify smoke (1024x4096x4096 and
    512x4096x4096) and at 1024x4096x2048, every tile of ``SM90_TILES`` (the
@@ -38,19 +42,20 @@ counts at 0 just before it and read just after:
    SMs the grid can fill;
 4. K2 (``ops/flash_attention.py``) against its plain version (O and lse):
    causal and not, S = 63, 200 and 2048, D = 16, 64, 72 and 128, bf16 and
-   f32;
+   f32, every case the simt kernel takes launched twice for the same bits;
    each case names the kernel that ran (``_variant``: bf16 at D = 64 or 128
    must take the wgmma kernel "sm90", the rest the CUDA-core kernel "simt");
    kernel / plain / SDPA / bound times and TFLOP/s at the 8B smoke's, the 1B
    training and a long shape, the simt kernel at ``entry()``'s shape, and
    the shapes phases 11-14 give it (the 8B forward's 32, 16 and 8 heads,
    the 1B step's 16 heads per rank, the 8B smoke's 16 heads per rank at
-   tp = 2), and the simt kernel in f32 at the 1B training shape beside
-   SDPA's f32 forward; then K3 and K4 (the flash backward), over the same
-   cases:
+   tp = 2), and the simt kernel in f32 at the 1B training shape and at
+   S = 2048, D = 128 beside SDPA's f32 forward; then K3 and K4 (the flash
+   backward), over the same cases:
    gradients through the autograd Function against ``flash_backward_plain``
    on the same out and lse over the same grid, each case naming K3's and
-   K4's kernels (as K2's), one f32 shape also against the autograd of
+   K4's kernels (as K2's), the simt K3 launched twice for the same bits,
+   one f32 shape also against the autograd of
    ``reference_attention``; K3 / K4 kernel / plain / bound times at the 1B
    training shape, at S = 2048, D = 128 and at phase 12's 16 heads per rank,
    beside SDPA's backward alone, each also by device time from
@@ -485,6 +490,9 @@ JOB_TIMEOUT_S = 600  # a job's start, restore and steps, or its hold
 JOB_SUB_POLL_S = 0.2  # the sidecar's drain poll (idle polls 5x)
 
 
+# Phase 2's count of f32 K1 and simt K2, K3, K4 instances: 8 each (element
+# type x vec, and K1's k chunk or the flash kernels' NQ).
+SIMT_INSTANCES = 32
 # The kernel variants the paths driven must launch (K2's simt in entry()).
 PATH_VARIANTS = {"K1/sm90", "K2/sm90", "K2/simt", "K3/sm90", "K4/sm90"}
 # Phase 21, the node bench on the card (tpu_cc_manager_torch/bench/): its
@@ -543,7 +551,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float | None:
     """Mean device time of one ``fn()``: the CUDA kernels' own time under
     ``torch.profiler`` over ``iters`` calls, so host work between them (an
     autograd engine's, say) does not count. None if the profiler saw no
-    device time."""
+    device time in two traces (one trace of the 4 us simt K2 at entry()'s
+    shape once came back without kernel events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -551,13 +560,16 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float | None:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(evt.self_device_time_total for evt in prof.key_averages()
-                   if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation)
-    return total_us / 1e3 / iters if total_us > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                       if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    return None
 
 
 class PhaseClock:
@@ -574,6 +586,10 @@ class PhaseClock:
 
 def fmt_ms(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def fmt_bytes(n: int | None) -> str:
+    return "not in the trace" if n is None else f"{n} bytes"
 
 
 def free_thread_workspaces(torch) -> None:
@@ -630,19 +646,77 @@ def sm90_tile_report(log: str) -> dict[tuple, dict]:
             for k, v in found.items()}
 
 
+SIMT_FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+
+
+def simt_name(name: str, dtype: str, nq: str | None, vec: str, kc: str | None = None) -> str:
+    """One f32 K1 or simt flash instance's name in phase 2's report."""
+    args = [dtype] + ([f"D {'<= 64' if nq == '1' else '72-128'}"] if nq else [])
+    args += [f"vec {vec}"] + ([f"k chunk {kc}"] if kc else [])
+    return f"{name}<{', '.join(args)}>"
+
+
 def simt_kernel_report(log: str) -> dict[str, dict]:
-    """The f32 K1's (``mm_f32_kernel``) and the simt K4's
-    (``flash_bwd_dkv_kernel``) ``ptxas_report`` by instance."""
-    found = ptxas_report(log, r"(mm_f32_kernel|flash_bwd_dkv_kernel)I(f|13__nv_bfloat16)"
+    """The f32 K1's (``mm_f32_kernel``) and the simt K2's, K3's and K4's
+    (``SIMT_FLASH``) ``ptxas_report`` by instance."""
+    found = ptxas_report(log, rf"(mm_f32_kernel|{'|'.join(SIMT_FLASH)})I(f|13__nv_bfloat16)"
                               r"(?:Li(\d+)E)?Lb([01])E(?:Li(\d+)E)?")
-    report = {}
-    for (name, dtype, nq, vec, kc), v in found.items():
-        args = ["f32" if dtype == "f" else "bf16"]
-        if nq:
-            args += [f"D {'<= 64' if nq == '1' else '72-128'}"]
-        args += [f"vec {vec}"] + ([f"k chunk {kc}"] if kc else [])
-        report[f"{name}<{', '.join(args)}>"] = v
-    return report
+    return {simt_name(name, "f32" if dtype == "f" else "bf16", nq, vec, kc): v
+            for (name, dtype, nq, vec, kc), v in found.items()}
+
+
+def simt_flash_launches(torch) -> dict[str, dict]:
+    """Launch every simt K2, K3 and K4 instance once, through the wrappers,
+    under ``torch.profiler``: f32 and bf16 at D = 16 and 72 (NQ = 1 and 2),
+    each with inputs on 16 bytes and one element off them (vec 1 and 0).
+    Returns, by instance (``simt_kernel_report``'s names), the D it ran at,
+    the count of its Python twin for that D, and the trace's shared memory
+    (static and dynamic) and registers per thread, or None where the trace
+    has no such field."""
+    import re
+
+    from tpu_cc_manager_torch.ops import flash_attention as fa
+
+    twins = {"flash_fwd_kernel": fa.fwd_simt_smem_bytes,
+             "flash_bwd_dq_kernel": fa.dq_simt_smem_bytes,
+             "flash_bwd_dkv_kernel": fa.dkv_simt_smem_bytes}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(dtype, D, off) for dtype in (torch.float32, torch.bfloat16) for D in (16, 72)
+             for off in (0, 1)]
+
+    def tensors(dtype, D, off):
+        shape = (1, 2, 100, D)
+        return [torch.randn(200 * D + off, generator=gen, device="cuda", dtype=dtype)[off:]
+                [:200 * D].view(shape) for _ in range(4)]
+
+    inputs = [tensors(*case) for case in cases]
+
+    def run():
+        for q, k, v, g in inputs:
+            out, lse = fa.flash_forward(q, k, v, True)
+            delta = fa.attention_delta(out, g)
+            fa.flash_backward_dq(q, k, v, g, lse, delta, True)
+            fa.flash_backward_dkv(q, k, v, g, lse, delta, True)
+
+    pattern = re.compile(rf"({'|'.join(SIMT_FLASH)})<(float|__nv_bfloat16), (\d), (true|false)>")
+    found = {}
+    def instances(events):  # 8 = 2 dtypes x 2 head dims x 2 alignments a kernel
+        return {m.groups() for m in map(pattern.search, (e.get("name", "") for e in events)) if m}
+
+    for event in kernel_events(torch, run,
+                               lambda events: len(instances(events)) == 8 * len(SIMT_FLASH)):
+        m = pattern.search(event.get("name", ""))
+        if m is None:
+            continue
+        name, dtype, nq, vec = m.groups()
+        size = 4 if dtype == "float" else 2
+        D = 16 if nq == "1" else 72
+        args = event.get("args", {})
+        instance = simt_name(name, "f32" if size == 4 else "bf16", nq, str(int(vec == "true")))
+        found[instance] = {"D": D, "python_count": twins[name](D, size),
+                           "trace_smem": args.get("shared memory"),
+                           "trace_registers": args.get("registers per thread")}
+    return found
 
 
 def k1_case(torch, a, b, blocks, ref, expected: str, out_dtype=None) -> tuple:
@@ -771,28 +845,48 @@ def check_k1(torch, peaks, variant: str) -> dict:
     return {"timed": timed, "simt": check_k1_f32(torch, peaks, gen), "sweep": sweep}
 
 
-def launch_grid(torch, fn, kernel: str) -> list | None:
-    """The grid of ``kernel``'s one launch in ``fn()``, from a
-    ``torch.profiler`` trace (its kernel events carry the grid), or None
-    when the trace holds none."""
+def kernel_events(torch, fn, complete, tries: int = 3) -> list[dict]:
+    """The kernel events of a ``torch.profiler`` trace of ``fn()``: each
+    kernel's name and its args (grid, block, registers per thread, shared
+    memory, ...). A trace for which ``complete(events)`` is false is taken
+    again, up to ``tries`` traces in all, and the last one is returned: the
+    profiler on the card has now and then returned a trace without the
+    kernel events of the launches it held."""
     import pathlib
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     build = pathlib.Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build) as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path, encoding="utf-8") as f:
-            events = json.load(f).get("traceEvents", [])
-    grids = [e["args"]["grid"] for e in events
-             if kernel in e.get("name", "") and "grid" in e.get("args", {})]
-    return grids[0] if len(grids) == 1 else None
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path, encoding="utf-8") as f:
+                events = json.load(f).get("traceEvents", [])
+        events = [e for e in events if e.get("cat") == "kernel" or "grid" in e.get("args", {})]
+        if complete(events):
+            break
+        say(f"torch.profiler trace {attempt + 1} of {tries}: {len(events)} kernel events, "
+            f"not the launches sought")
+    return events
+
+
+def launch_grid(torch, fn, kernel: str) -> list | None:
+    """The grid of ``kernel``'s one launch in ``fn()``, from a
+    ``torch.profiler`` trace (its kernel events carry the grid), or None
+    when the trace holds none."""
+    def grids(events):
+        return [e["args"]["grid"] for e in events
+                if kernel in e.get("name", "") and "grid" in e.get("args", {})]
+
+    found = grids(kernel_events(torch, fn, lambda events: len(grids(events)) == 1))
+    return found[0] if len(found) == 1 else None
 
 
 def k1_cluster(M: int, N: int, blocks) -> tuple[int, int]:
@@ -1042,12 +1136,19 @@ def check_k2(torch, peaks) -> dict:
         want = expected_variant(q.dtype, D)
         ok = (bool(torch.isfinite(out).all()) and rel <= tol and lse_err <= LSE_TOL
               and variant == want)
+        repeat = ""
+        if variant == "simt":
+            # One summation order and no atomics: a second launch, the same bits.
+            again, again_lse = flash_forward(q, k, v, causal)
+            same = torch.equal(out, again) and torch.equal(lse, again_lse)
+            ok = ok and same
+            repeat = f"; two launches {'bitwise equal' if same else 'DIFFER'}"
         say(f"K2 [{variant}] B={B} H={H} S={S} D={D} causal={causal} {dtype}: O "
             f"max_abs_err={err:.3e} rel_err={rel:.3e} (tol {tol:g}) lse max_abs_err="
-            f"{lse_err:.3e} (tol {LSE_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+            f"{lse_err:.3e} (tol {LSE_TOL:g}){repeat} {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"K2 [{variant}, want {want}] disagrees with its plain version (B={B} H={H} "
-                 f"S={S} D={D} causal={causal} {dtype})")
+            fail(f"K2 [{variant}, want {want}] disagrees with its plain version or itself "
+                 f"(B={B} H={H} S={S} D={D} causal={causal} {dtype})")
         return err, variant
 
     for causal in (True, False):
@@ -1086,26 +1187,27 @@ def check_k2(torch, peaks) -> dict:
         timed.append(dict(variant=variant, shape=[B, H, S, D], max_abs_err=err, ms=ms,
                           device_ms=dev, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                           library_ms=lib))
-    # The simt K2 in f32 at the 1B training shape, which no path runs, beside
-    # SDPA's f32 forward, against the f32 peak.
-    B, H, S, D = 4, 32, 1024, 64
-    q, k, v = inputs(B, H, S, D, torch.float32)
-    err, variant = compare(q, k, v, True)
-    ms = time_ms(lambda: flash_forward(q, k, v, True))
-    dev = device_ms(lambda: flash_forward(q, k, v, True))
-    plain = time_ms(lambda: flash_forward_plain(q, k, v, True), iters=3, warmup=1)
-    lib_event = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    lib_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    flops = 4.0 * B * H * D * S * (S + 1) / 2
-    b_ms, b_by = bound_ms(flops, 4.0 * B * H * S * D * 4 + B * H * S * 4, peaks["f32"],
-                          peaks["bw"])
-    say(f"K2 [{variant}] timing B={B} H={H} S={S} D={D} float32 causal: kernel_ms={ms:.4f} "
-        f"(device {fmt_ms(dev)}) plain_ms={plain:.4f} sdpa_ms={lib_event:.4f} (device "
-        f"{fmt_ms(lib_dev)}, f32) bound_ms={b_ms:.5f} ({b_by}) tflops={flops / ms / 1e9:.2f}")
-    timed.append(dict(variant=variant, shape=[B, H, S, D], dtype="float32", max_abs_err=err,
-                      ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                      library_ms=lib_event if lib_dev is None else lib_dev,
-                      library_event_ms=lib_event, library_call="SDPA forward (f32)"))
+    # The simt K2 in f32, which no path runs, at the 1B training shape and at
+    # S = 2048, D = 128, beside SDPA's f32 forward, against the f32 peak.
+    for B, H, S, D in ((4, 32, 1024, 64), (1, 32, 2048, 128)):
+        q, k, v = inputs(B, H, S, D, torch.float32)
+        err, variant = compare(q, k, v, True)
+        ms = time_ms(lambda: flash_forward(q, k, v, True))
+        dev = device_ms(lambda: flash_forward(q, k, v, True))
+        plain = time_ms(lambda: flash_forward_plain(q, k, v, True), iters=3, warmup=1)
+        lib_event = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        lib_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        flops = 4.0 * B * H * D * S * (S + 1) / 2
+        b_ms, b_by = bound_ms(flops, 4.0 * B * H * S * D * 4 + B * H * S * 4, peaks["f32"],
+                              peaks["bw"])
+        say(f"K2 [{variant}] timing B={B} H={H} S={S} D={D} float32 causal: kernel_ms={ms:.4f} "
+            f"(device {fmt_ms(dev)}) plain_ms={plain:.4f} sdpa_ms={lib_event:.4f} (device "
+            f"{fmt_ms(lib_dev)}, f32) bound_ms={b_ms:.5f} ({b_by}) tflops={flops / ms / 1e9:.2f}")
+        timed.append(dict(variant=variant, shape=[B, H, S, D], dtype="float32",
+                          max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_event if lib_dev is None else lib_dev,
+                          library_event_ms=lib_event, library_call="SDPA forward (f32)"))
+        del q, k, v
     return timed
 
 
@@ -1134,6 +1236,10 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
         with torch.no_grad():
             out, lse = fa.flash_forward(q, k, v, causal)
             refs = fa.flash_backward_plain(q, k, v, out, lse, g, causal)
+            if variants[0] == "simt":
+                # One summation order and no atomics: two launches, the same bits.
+                args = (q, k, v, g, lse, fa.attention_delta(out, g), causal)
+                same = torch.equal(fa.flash_backward_dq(*args), fa.flash_backward_dq(*args))
         torch.cuda.synchronize()
         tol = K34_TOL[dtype]
         want = expected_variant(q.dtype, D)
@@ -1144,12 +1250,16 @@ def check_k3_k4(torch, peaks) -> tuple[dict, dict]:
             ok = ok and got.dtype == q.dtype and bool(torch.isfinite(got).all()) and rel <= tol
             errs[name] = err
             parts.append(f"{name} max_abs_err={err:.3e} rel_err={rel:.3e}")
+        repeat = ""
+        if variants[0] == "simt":
+            ok = ok and same
+            repeat = f"; K3 two launches {'bitwise equal' if same else 'DIFFER'}"
         ran = f"K3 {variants[0]}, K4 {variants[1]}"
         say(f"K3/K4 [{ran}] B={B} H={H} S={S} D={D} causal={causal} {dtype}: "
-            f"{' '.join(parts)} (tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
+            f"{' '.join(parts)} (tol {tol:g}){repeat} {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"K3/K4 [{ran}, want {want}] disagree with flash_backward_plain "
-                 f"(B={B} H={H} S={S} D={D} causal={causal} {dtype})")
+            fail(f"K3/K4 [{ran}, want {want}] disagree with flash_backward_plain or K3 "
+                 f"with itself (B={B} H={H} S={S} D={D} causal={causal} {dtype})")
         return errs, variants
 
     for causal in (True, False):
@@ -4183,30 +4293,53 @@ def main(argv: list[str] | None = None) -> int:
             if any(key in line for key in ("registers", "spill", "Compiling entry", "wgmma")):
                 say(f"ptxas[{name}]: {line.strip()}")
         simt.update(simt_kernel_report(log))
-    # The f32 K1 and the simt K4 (dynamic shared memory: their launches).
+    # The f32 K1 and the simt K2, K3 and K4: each instance's registers and
+    # spills, and each flash instance launched once, its dynamic shared
+    # memory (the trace's, less ptxas's static) against the Python count.
+    t0 = time.perf_counter()
+    launched = simt_flash_launches(torch)
+    say(f"simt K2-K4 instances launched once under torch.profiler: {len(launched)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    problems = []
     for kernel, r in sorted(simt.items()):
-        say(f"ptxas {kernel}: {r.get('registers')} registers, spill stores "
-            f"{r.get('spill_stores')} / loads {r.get('spill_loads')} bytes, {r['smem']} bytes "
-            f"of static shared memory")
-    from tpu_cc_manager_torch.ops.flash_attention import dkv_simt_smem_bytes
+        line = (f"ptxas {kernel}: {r.get('registers')} registers, spill stores "
+                f"{r.get('spill_stores')} / loads {r.get('spill_loads')} bytes, {r['smem']} bytes "
+                f"of static shared memory")
+        if r.get("spill_stores") != 0 or r.get("spill_loads") != 0:
+            problems.append(f"{kernel} spills")
+        if kernel.startswith(SIMT_FLASH):
+            run = launched.get(kernel)
+            dynamic = None if run is None or run["trace_smem"] is None else \
+                run["trace_smem"] - r["smem"]
+            if run is not None:
+                line += (f"; launched at D = {run['D']}: {fmt_bytes(dynamic)} of dynamic shared "
+                         f"memory (Python count {run['python_count']}), "
+                         f"{run['trace_registers']} registers")
+            if dynamic != (run or {}).get("python_count"):
+                problems.append(f"{kernel}: dynamic shared memory {dynamic} is not the Python "
+                                f"count {(run or {}).get('python_count')}")
+        say(line)
+    from tpu_cc_manager_torch.ops import flash_attention as fa
 
-    say("simt K4 dynamic shared memory a block: " + ", ".join(
-        f"{dtype} D = {D}: {dkv_simt_smem_bytes(D, size)} bytes"
-        for dtype, size in (("f32", 4), ("bf16", 2)) for D in (64, 72, 128)))
-    if len(simt) != 16 or any(r.get("spill_stores") != 0 or r.get("spill_loads") != 0
-                              for r in simt.values()):
-        fail(f"the f32 K1 and simt K4 instances did not all build without spills: {simt}")
+    for label, count in (("K2", fa.fwd_simt_smem_bytes), ("K3", fa.dq_simt_smem_bytes),
+                         ("K4", fa.dkv_simt_smem_bytes)):
+        say(f"simt {label} dynamic shared memory a block: " + ", ".join(
+            f"{dtype} D = {D}: {count(D, size)} bytes"
+            for dtype, size in (("f32", 4), ("bf16", 2)) for D in (64, 72, 128)))
+    if len(simt) != SIMT_INSTANCES or problems:
+        fail(f"the f32 K1 and simt K2-K4 instances did not all build ({len(simt)} of "
+             f"{SIMT_INSTANCES}) without spills at the Python shared memory: {problems}")
 
     clock.lap("phase 2")
     # --- 3. and 4. kernels against their plain versions ----------------------
     k1 = check_k1(torch, peaks, variant)
     k2 = check_k2(torch, peaks)
     k3, k4 = check_k3_k4(torch, peaks)
+    clock.lap("phases 3-4")
     if args.only_kernels:
         say(json.dumps({"kernels_checked": {"K1": k1, "K2": k2, "K3": k3, "K4": k4}}))
         return 0
 
-    clock.lap("phases 3-4")
     # --- 5. matmul smoke, both kernels -----------------------------------------
     from tpu_cc_manager_torch.smoke.runner import SmokeError, run_workload_subprocess
 

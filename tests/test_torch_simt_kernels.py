@@ -1,15 +1,20 @@
-"""What the f32 ("simt") K1 and K4 kernels promise, checked without a card.
+"""What the f32 ("simt") K1, K2, K3 and K4 kernels promise, checked without
+a card.
 
 K1 spreads each caller tile over one thread-block cluster; the rule that
 sizes it is ``ops/matmul.py::f32_cluster``, the same as the C entry's
 ``csrc/matmul.cu::f32_cluster`` (``chip_smoke.py`` phase 3 holds the C
-entry's answer and the profiler's grid to it on the card). K4's shared
-memory per block is ``ops/flash_attention.py::dkv_simt_smem_bytes``, the
-count ``csrc/flash_attention.cu::dkv_smem_bytes`` makes, and must fit in
-one H100 block at every head dim the wrapper takes. The simt K4's plain
-version holds against the JAX ``_bwd_dkv_kernel`` in interpret mode at the
-head dims only the simt kernel serves, with tests/test_ops.py's f32
-gradient tolerance. Inputs come from numpy with fixed seeds.
+entry's answer and the profiler's grid to it on the card). The shared
+memory per block of K2, K3 and K4 is ``ops/flash_attention.py``'s
+``fwd_simt_smem_bytes``, ``dq_simt_smem_bytes`` and
+``dkv_simt_smem_bytes``, the counts ``csrc/flash_attention.cu``'s
+``fwd_smem_bytes``, ``dq_smem_bytes`` and ``dkv_smem_bytes`` make, and
+each must fit in one H100 block at every head dim the wrapper takes. The
+simt kernels' plain versions hold against the JAX ``_fwd_kernel``,
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` in interpret mode at the head
+dims only the simt kernels serve, with tests/test_ops.py's f32 tolerance.
+Every text edit of ``bench/kernel_variants.py`` names text its source holds
+once. Inputs come from numpy with fixed seeds.
 """
 
 import importlib
@@ -24,6 +29,7 @@ import pytest
 import torch
 
 from test_torch_matmul_tiles import F32_TILINGS
+from tpu_cc_manager_torch.bench import kernel_variants
 from tpu_cc_manager_torch.ops import flash_attention as tfa
 from tpu_cc_manager_torch.ops import matmul as tmm
 
@@ -137,6 +143,62 @@ def test_the_k4_shared_memory_is_the_kernels_count():
     assert "constexpr int DKV_LDP = DKV_BKV + 4;" in src
 
 
+# kernel -> (Python count, the C count's name and body, its constants and
+# their Python values)
+K23_SMEM = {
+    "K2": (tfa.fwd_simt_smem_bytes, "fwd_smem_bytes",
+           " return static_cast<size_t>(FWS_BQ) * (D + 4) * 4 + 2 * static_cast<size_t>"
+           "(FWS_STAGES) * FWS_BKV * (D * elem_bytes + 16) + static_cast<size_t>(FWS_BKV) * "
+           "FWS_LDP * 4; ",
+           {"FWS_BQ": tfa.FWD_SIMT_QUERIES, "FWS_BKV": tfa.FWD_SIMT_KEYS,
+            "FWS_STAGES": tfa.FWD_SIMT_STAGES}, "constexpr int FWS_LDP = FWS_BQ + 4;"),
+    "K3": (tfa.dq_simt_smem_bytes, "dq_smem_bytes",
+           " return 2 * static_cast<size_t>(dqs_bq(D)) * (D + 4) * 4 + 2 * static_cast<size_t>"
+           "(DQS_STAGES) * DQS_BKV * (D * elem_bytes + 16) + static_cast<size_t>(DQS_BKV) * "
+           "(dqs_bq(D) + 4) * 4; ",
+           {"DQS_BQ": tfa.DQ_SIMT_QUERIES, "DQS_BQ_WIDE": tfa.DQ_SIMT_QUERIES_WIDE,
+            "DQS_BKV": tfa.DQ_SIMT_KEYS, "DQS_STAGES": tfa.DQ_SIMT_STAGES},
+           "constexpr int dqs_bq(int D) { return D <= 64 ? DQS_BQ : DQS_BQ_WIDE; }"),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(K23_SMEM))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_the_k2_and_k3_shared_memory_fits_every_head_dim(kernel, dtype):
+    """The simt K2's and K3's blocks fit one H100 block's 232,448 bytes at
+    every D the wrapper takes, in f32 and bf16, and grow with D."""
+    count = K23_SMEM[kernel][0]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    sizes = [count(D, itemsize) for D in range(8, tfa.MAX_HEAD_DIM + 1, 8)]
+    assert max(sizes) <= SMEM_LIMIT and sizes == sorted(sizes), sizes
+
+
+@pytest.mark.parametrize("kernel", sorted(K23_SMEM))
+def test_the_k2_and_k3_shared_memory_is_the_kernels_count(kernel):
+    """The C count names the same parts as the Python one, from constants
+    of the Python values (K3's query tile by head dim, as ``dqs_bq``); the
+    Python count is those parts' sum."""
+    count, name, body, constants, rows = K23_SMEM[kernel]
+    src = (CSRC / "flash_attention.cu").read_text()
+    found = src.split(f"constexpr size_t {name}(int D, int elem_bytes) {{", 1)[1]
+    assert re.sub(r"\s+", " ", found.split("}", 1)[0]) == body
+    for constant, value in constants.items():
+        assert re.search(rf"constexpr int {constant} = {value};", src), constant
+    assert rows in src
+    if kernel == "K2":
+        resident, queries = 1, lambda D: tfa.FWD_SIMT_QUERIES  # noqa: E731  (Q)
+        bkv, stages = tfa.FWD_SIMT_KEYS, tfa.FWD_SIMT_STAGES
+    else:
+        resident, queries = 2, tfa.dq_simt_queries  # Q and dO
+        bkv, stages = tfa.DQ_SIMT_KEYS, tfa.DQ_SIMT_STAGES
+        assert [queries(D) for D in (8, 64, 72, 128)] == [64, 64, 128, 128]
+    for D in (8, 64, 72, 128):
+        for itemsize in (2, 4):
+            assert count(D, itemsize) == (resident * queries(D) * (D + 4) * 4
+                                          + 2 * stages * bkv * (D * itemsize + 16)
+                                          + bkv * (queries(D) + 4) * 4)
+
+
 def normal(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
@@ -163,3 +225,56 @@ def test_the_simt_k4_plain_version_matches_jax(D, causal):
         assert ours.dtype == torch.float32 and ours.shape == (1, 2, S, D)
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=1e-4, rtol=1e-4,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("D", [24, 72, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_the_simt_k2_plain_version_matches_jax(D, causal):
+    """O and lse of ``flash_forward_plain`` (what the simt K2 computes, and
+    runs on CPU tensors) against the JAX ``_fwd_kernel`` in interpret mode:
+    f32, a ragged S of 100, at head dims only the simt kernel serves (1e-4:
+    tests/test_ops.py's f32 tolerance)."""
+    S = 100
+    q, k, v = (normal((1, 2, S, D), 400 + D + i) for i in range(3))
+    out, lse = jfa._flash_forward(*map(jnp.asarray, (q, k, v)), causal, 64, 64, True)
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    ours, ours_lse = tfa.flash_forward_plain(t(q), t(k), t(v), causal, 64, 64)
+    assert tfa._variant(torch.float32, D) == "simt"
+    assert ours.dtype == torch.float32 and ours.shape == (1, 2, S, D)
+    assert ours_lse.dtype == torch.float32 and ours_lse.shape == (2, S, 1)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(out), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(ours_lse.numpy(), np.asarray(lse).reshape(2, S, 1), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("D", [24, 72, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_the_simt_k3_plain_version_matches_jax(D, causal):
+    """dQ of ``flash_backward_dq_plain`` (what the simt K3 computes, and runs
+    on CPU tensors) against the JAX ``_bwd_dq_kernel`` in interpret mode on
+    the same out, lse and cotangent: f32, a ragged S of 100, at head dims
+    only the simt kernel serves (1e-4: tests/test_ops.py's f32 gradient
+    tolerance)."""
+    S = 100
+    q, k, v, g = (normal((1, 2, S, D), 500 + D + i) for i in range(4))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, lse = jfa._flash_forward(jq, jk, jv, causal, 64, 64, True)
+    jdq, _, _ = jfa._flash_backward(jq, jk, jv, out, lse, jnp.asarray(g), causal, 64, 64, True)
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    delta = tfa.attention_delta(t(out), t(g))
+    dq = tfa.flash_backward_dq_plain(t(q), t(k), t(v), t(g), t(lse), delta, causal, 64, 64)
+    assert dq.dtype == torch.float32 and dq.shape == (1, 2, S, D)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(jdq), atol=1e-4, rtol=1e-4)
+
+
+EDITS = [(kernel, label, old) for kernel, (_, variants) in kernel_variants.VARIANTS.items()
+         for label, edits in variants.items() for old, _ in edits]
+
+
+@pytest.mark.parametrize("kernel,label,old", EDITS, ids=lambda v: str(v)[:40])
+def test_every_variant_edit_names_text_its_source_holds_once(kernel, label, old):
+    """Each edit of ``bench/kernel_variants.py`` replaces text that occurs
+    exactly once in its ``csrc`` file, so a variant changes what it says,
+    and a source edited since fails here rather than on the card."""
+    source = kernel_variants.VARIANTS[kernel][0]
+    assert (CSRC / f"{source}.cu").read_text().count(old) == 1, (kernel, label)

@@ -7,23 +7,27 @@
 // shaped (B*H, S, 1); scores are scaled by 1/sqrt(D); masked scores are
 // NEG_INF = -1e30 (not -inf, as the TPU kernel); l is clamped to 1e-30.
 //
-// K2 design. One thread block per (b*h, 32-query tile); the TPU grid's query
-// axis becomes blockIdx.x, and the key walk (a fori_loop on the TPU) is a loop
-// inside the block that streams 32-key K/V tiles through shared memory. The
-// running max m, normaliser l and accumulator acc stay in f32 registers: 8
-// threads own one query row, each holding D/8 accumulator columns. The causal
-// walk stops at the tile that holds the block's last query (early exit at the
-// diagonal), and keys past S are masked in the kernel (k_pos < S) rather than
-// padded by a copy: tail K/V rows are loaded as zeros and their scores
-// replaced by NEG_INF.
+// K2 design (simt: f32, and bf16 at head dims other than 64 and 128). One
+// thread block per (b*h, 64-query tile); the TPU grid's query axis becomes
+// blockIdx.y, walked from the last tile (the longest causal walk) down, and
+// the key walk (a fori_loop on the TPU) is a loop inside the block that
+// streams 32-key K/V tiles through a two-stage cp.async ring while the tile
+// before computes. The causal walk stops at the tile that holds the block's
+// last query, and keys past S are masked in the kernel (k_pos < S) rather
+// than padded by a copy: tail K/V rows are zero-filled by the copy and their
+// scores replaced by NEG_INF.
 //
-// What bounds K2 on the H100: for the Llama smoke's no-cache forward
-// (B=4, H=32, S=63, D=128) the work is tiny and latency-bound; at long S the
-// 4*B*H*S^2*D operations dominate the 4*B*H*S*D*2 bytes, so the tensor cores
-// would be the limit. This first version computes QK^T and PV in f32 on the
-// CUDA cores (67 TFLOP/s peak, not 989), with all tiles staged in shared
-// memory in f32 and rows padded by one float to avoid bank conflicts. The
-// sm90 variant below moves the two products onto wgmma.
+// What bounds K2 on the H100: at long S the 4*B*H*S^2*D operations dominate
+// the 4*B*H*S*D*2 bytes, so the arithmetic units are the limit. In f32 that
+// is the CUDA cores' 67 TFLOP/s (wgmma would compute in TF32, which the f32
+// contract rules out): 0.257 ms at the Llama-3.2-1B training shape (B=4,
+// H=32, S=1024, D=64, causal). The first version spent two shared-memory
+// loads on each FMA, one 32-float wavefront a clock against four warps'
+// FMAs. The redesign (flash_fwd_kernel, PR 18) keeps 4 queries x 2 keys of
+// S and 4 queries x 4 NQ columns of O in each thread's registers, so a float4
+// read feeds 4 to 16 FMAs; masks and rescales only where they can act; and
+// works in the log2 domain with exp2f. The sm90 variant below moves the two
+// products onto wgmma for bf16 at D = 64 or 128.
 //
 // K3 replaces _bwd_dq_kernel and K4 replaces _bwd_dkv_kernel (both launched
 // by pl.pallas_call in _flash_backward). Their inputs are q, k, v, dO in the
@@ -37,15 +41,16 @@
 // block, dK/dV walks query blocks per key block, each rebuilding P. That maps
 // onto blocks that run in parallel on the SMs with no reduction across blocks,
 // and the sums keep one order, so the result is deterministic. K3 is one
-// block per (b*h, 32-query tile) holding the Q and dO rows, lse and delta,
-// streaming 32-key K/V tiles up to the diagonal; 8 threads own one query row
-// and keep D/8 dQ columns in f32 registers. K4 is one block per (b*h, 64-key
-// tile) holding K and V, streaming Q/dO tiles from the first tile that holds
-// a query at or after the block's first key (the TPU kernel's causal start)
-// through a cp.async ring (see flash_bwd_dkv_kernel). Masks as K2: q_pos <
-// S, k_pos < S and causal k_pos <= q_pos set s to NEG_INF, so P, and with it
-// every contribution of a phantom row or key, is exactly 0; rows past S are
-// never written.
+// block per (b*h, query tile: 64 queries at D <= 64, 128 above) holding the
+// Q and dO rows in f32 and each
+// row's lse and delta in registers, streaming 32-key K/V tiles from key 0 to
+// the diagonal through a cp.async ring (see flash_bwd_dq_kernel). K4 is one
+// block per (b*h, 64-key tile) holding K and V, streaming Q/dO tiles from the
+// first tile that holds a query at or after the block's first key (the TPU
+// kernel's causal start) through a cp.async ring (see flash_bwd_dkv_kernel).
+// Masks as K2: q_pos < S, k_pos < S and causal k_pos <= q_pos set s to
+// NEG_INF, so P, and with it every contribution of a phantom row or key, is
+// exactly 0; rows past S are never written.
 //
 // What bounds K3/K4 on the H100: at the Llama-3.2-1B training shape
 // (B=4, H=32, S=1024, D=64, causal) K3 does 3 and K4 4 products of
@@ -53,12 +58,12 @@
 // at about 300 operations per byte in bf16 the tensor cores would be the
 // limit, and the sm90 variants below run K3's and K4's products there. The
 // simt variants keep f32 (wgmma would round it to TF32), so they are bound
-// by the CUDA cores' 67 TFLOP/s: 0.513 ms for K4 in f32 at that shape. K3's
-// first version spends two shared-memory loads on each FMA and waits for
-// each K/V tile between two barriers; K4's redesign (PR 17) spends one load
-// on 4 FMAs in S^T and dP^T and 8 NQ loads on 32 NQ in dV and dK, from
-// registers that hold 4 x 4 blocks of the products, and keeps the next
-// query tile's copy in flight while it computes.
+// by the CUDA cores' 67 TFLOP/s: 0.385 ms for K3 and 0.513 ms for K4 in f32
+// at that shape. Their first versions spent two shared-memory loads on each
+// FMA and waited for each tile between two barriers. The redesigns (K4 in PR
+// 17, K3 in PR 18) hold 4 x 2 (K3) or 4 x 4 (K4) blocks of each product in
+// registers, so that one float4 read feeds 4 to 16 FMAs, and keep the next
+// tile's copy in flight while they compute.
 //
 // D may be any multiple of 8 up to 128 (the wrappers check). Shared memory
 // exceeds 48 KB at D=128, so each entry raises its kernel's dynamic limit.
@@ -107,13 +112,6 @@
 
 namespace {
 
-constexpr int BQ = 32;       // query rows per block (K2, K3)
-constexpr int BKV = 32;      // keys per streamed tile (K2, K3)
-constexpr int TPR = 8;       // threads per query row (K2, K3)
-constexpr int THREADS = BQ * TPR;  // 256
-constexpr int MAXD = 128;
-constexpr int KEYS_PER_THREAD = BKV / TPR;  // 4 (K2, K3)
-constexpr int COLS_PER_THREAD = MAXD / TPR; // up to 16 accumulator columns
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -130,221 +128,514 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Rows [first, first + rows) of a (S, D) slice into a shared tile of leading
-// dimension ld, in f32; rows at or past S are zeros.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restrict__ src,
-                                          int first, int rows, int S, int D) {
-  for (int e = threadIdx.x; e < rows * D; e += THREADS) {
-    const int r = e / D, d = e % D, p = first + r;
-    dst[r * ld + d] = p < S ? to_float(src[static_cast<size_t>(p) * D + d]) : 0.0f;
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// Four consecutive outputs at p: one 16-byte (f32) or 8-byte (bf16) store
+// where VEC (p aligned to it), else element stores.
+template <bool VEC>
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  if constexpr (VEC) {
+    *reinterpret_cast<float4*>(p) = x;
+  } else {
+    p[0] = x.x, p[1] = x.y, p[2] = x.z, p[3] = x.w;
   }
 }
 
-__host__ __device__ constexpr size_t fwd_smem_floats(int D) {
-  // Q tile (BQ x D+1), K tile (BKV x D+1), V tile (BKV x D), P tile (BQ x BKV+1)
-  return static_cast<size_t>(BQ) * (D + 1) + static_cast<size_t>(BKV) * (D + 1) +
-         static_cast<size_t>(BKV) * D + static_cast<size_t>(BQ) * (BKV + 1);
+template <bool VEC>
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  if constexpr (VEC) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(sm90::pack_bf16(x.x, x.y), sm90::pack_bf16(x.z, x.w));
+  } else {
+    p[0] = __float2bfloat16(x.x), p[1] = __float2bfloat16(x.y);
+    p[2] = __float2bfloat16(x.z), p[3] = __float2bfloat16(x.w);
+  }
 }
 
-__host__ __device__ constexpr size_t bwd_smem_floats(int D) {
-  // K3: Q, dO, K and V tiles (32 x D+1 each), P and dS tiles (32 x 33 each;
-  // it uses only dS), lse and delta (32 each; unused, the layout K3 shared
-  // with the first K4)
-  return 4 * static_cast<size_t>(BQ) * (D + 1) + 2 * static_cast<size_t>(BQ) * (BKV + 1) +
-         2 * static_cast<size_t>(BQ);
+// N (2 or a multiple of 4) consecutive floats of shared memory, aligned to
+// their size up to 16 bytes, in as few loads or stores as that allows.
+template <int N>
+__device__ __forceinline__ void load_n(float (&dst)[N], const float* src) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const float4 t = load4(src + j);
+      dst[j] = t.x, dst[j + 1] = t.y, dst[j + 2] = t.z, dst[j + 3] = t.w;
+    }
+  } else {
+    static_assert(N == 2, "2 or a multiple of 4");
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x, dst[1] = t.y;
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <int N>
+__device__ __forceinline__ void store_n(float* dst, const float (&src)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4)
+      *reinterpret_cast<float4*>(dst + j) = make_float4(src[j], src[j + 1], src[j + 2], src[j + 3]);
+  } else {
+    static_assert(N == 2, "2 or a multiple of 4");
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+  }
+}
+
+// The simt K2 and K3 share one thread layout: 256 threads, 16 query groups
+// (tq = tid / 16, one half-warp each) by 16 lanes (tl = tid % 16).
+constexpr int SIMT_THREADS = 256;
+
+// Rows [first, first + rows) of one head's (S, D) slice into shared memory in
+// f32, rows ld floats apart, zeros at and past S: vector loads where VEC
+// (src on 16 bytes), else element loads.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const T* __restrict__ src,
+                                              int first, int rows, int S, int D) {
+  constexpr int E = 16 / sizeof(T);
+  const int pieces = D / E;
+  for (int e = threadIdx.x; e < rows * pieces; e += SIMT_THREADS) {
+    const int r = e / pieces, c = (e % pieces) * E, p = first + r;
+    float* out = dst + r * ld + c;
+    const T* in = src + static_cast<size_t>(p) * D + c;
+    if (p >= S) {
+#pragma unroll
+      for (int t = 0; t < E; ++t) out[t] = 0.0f;
+    } else if constexpr (VEC) {
+#pragma unroll
+      for (int t = 0; t < E; t += 4) *reinterpret_cast<float4*>(out + t) = load4(in + t);
+    } else {
+#pragma unroll
+      for (int t = 0; t < E; ++t) out[t] = to_float(in[t]);
+    }
+  }
+}
+
+// Rows [first, first + rows) of two (S, D) slices a and b (of one head,
+// from base) into a ring stage in their own type: a's at da, b's at db, rows
+// ld elements apart, zeros at and past S. VEC (a and b on 16 bytes): 16-byte
+// cp.async, in flight until the caller's wait; otherwise element copies,
+// visible after the caller's next barrier. K2 and K3 stream K and V with it,
+// K4 Q and dO.
+template <typename T, bool VEC>
+__device__ __forceinline__ void copy_pair(T* da, T* db, int ld, const T* __restrict__ a,
+                                          const T* __restrict__ b, size_t base, int first,
+                                          int rows, int S, int D) {
+  constexpr int E = 16 / sizeof(T);
+  const int pieces = D / E;
+  for (int e = threadIdx.x; e < rows * pieces; e += SIMT_THREADS) {
+    const int r = e / pieces, c = (e % pieces) * E;
+    const bool in = first + r < S;
+    const size_t off = base + static_cast<size_t>(first + r) * D + c;
+    if constexpr (VEC) {
+      sm90::cp_async_16(da + r * ld + c, in ? a + off : a, in ? 16 : 0);
+      sm90::cp_async_16(db + r * ld + c, in ? b + off : b, in ? 16 : 0);
+    } else {
+      for (int t = 0; t < E; ++t) {
+        da[r * ld + c + t] = in ? a[off + t] : from_float<T>(0.0f);
+        db[r * ld + c + t] = in ? b[off + t] : from_float<T>(0.0f);
+      }
+    }
+  }
+}
+
+// K2, simt variant: O and lse for one (b*h, FWS_BQ-query tile), f32 FMAs on
+// the CUDA cores. Q stays in shared memory in f32 (rows padded by 16 bytes);
+// FWS_BKV-key K/V tiles stream from key 0 to the causal diagonal through a
+// FWS_STAGES-deep ring that cp.async keeps ahead of the tile in use, in the
+// input type. Thread (tq, tl) owns queries tq + 16 a (a < QPT = FWS_BQ / 16):
+// - S = Q K^T: keys tl and tl + 16 of each tile, walking D in float4 reads of
+//   Q and K rows (a query group's 16 lanes read the same Q row, its lanes 16
+//   different K rows, whose 16-byte padding puts the 8 a quarter-warp reads
+//   in distinct banks): 32 FMAs per 6 loads;
+// - the online softmax per query in the log2 domain (scale * log2e folded
+//   into one multiply, exp2f), row max over the group's 16 lanes by
+//   __shfl_xor_sync, each lane's share of the row sum kept apart and summed
+//   once at the end; masks only on the tiles a causal or ragged key can fall
+//   in;
+// - P written once to shared memory by key, a thread's QPT queries adjacent;
+//   its own query group reads it back, so __syncwarp orders it;
+// - O += P V: columns 4 (tl + 16 c) .. + 3 (c < NQ = ceil(D / 64)) of its
+//   queries, in f32 registers across the walk; per key QPT floats of P and
+//   NQ float4s of V: 4 QPT NQ FMAs per 1 + NQ loads (QPT = 4: 16 NQ per
+//   1 + NQ).
+// The last query tiles, the longest causal walks, launch first. Every sum
+// runs in one order, no atomics.
+// 64 queries x 32 keys measured fastest over both shapes it was timed at,
+// f32 causal (NVIDIA H100 80GB HBM3, 700 W; tpu_cc_manager_torch/bench/
+// kernel_variants.py): 0.685 ms at (4, 32, 1024, 64) and 1.462 at (1, 32,
+// 2048, 128); 32-query tiles 0.883 and 1.889; 128-query tiles 0.666 and
+// 1.489, with spills; 64-key tiles 0.659 and 1.571; a ring of 3 stages 0.740
+// and 2.359 (its shared memory leaves one block fewer an SM).
+// VEC: q, k, v and o start on 16 bytes (16-byte copies and stores).
+
+constexpr int FWS_BQ = 64;                  // queries per block
+constexpr int FWS_BKV = 32;                 // keys per streamed tile
+constexpr int FWS_STAGES = 2;               // K/V ring depth
+constexpr int FWS_LDP = FWS_BQ + 4;         // a key's row of P, padded
+
+// Q (FWS_BQ x D+4 f32), the stages' K and V (FWS_BKV rows of D elements + 16
+// bytes each), P (FWS_BKV x FWS_LDP f32). ops/flash_attention.py::
+// fwd_simt_smem_bytes is the same count.
+__host__ __device__ constexpr size_t fwd_smem_bytes(int D, int elem_bytes) {
+  return static_cast<size_t>(FWS_BQ) * (D + 4) * 4 +
+         2 * static_cast<size_t>(FWS_STAGES) * FWS_BKV * (D * elem_bytes + 16) +
+         static_cast<size_t>(FWS_BKV) * FWS_LDP * 4;
+}
+
+template <typename T, int NQ, bool VEC>
+__global__ void __launch_bounds__(SIMT_THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int S, int D, float scale,
-                     int causal) {
-  extern __shared__ float smem[];
-  const int ldq = D + 1;
-  const int ldk = D + 1;
-  const int ldp = BKV + 1;
-  float* Qs = smem;
-  float* Ks = Qs + BQ * ldq;
-  float* Vs = Ks + BKV * ldk;
-  float* Ps = Vs + BKV * D;
+                     float* __restrict__ lse, int S, int D, float scale, int causal) {
+  constexpr int QPT = FWS_BQ / 16;    // queries a thread owns
+  constexpr int KPT = FWS_BKV / 16;   // keys a thread takes in S
+  constexpr int E = 16 / sizeof(T);  // elements in 16 bytes
+  extern __shared__ float4 fw_smem[];
+  const int ldq = D + 4;             // a Q row (f32)
+  const int ldk = D + E;             // a K or V row (T)
+  float* Qs = reinterpret_cast<float*>(fw_smem);
+  float* Ps = Qs + FWS_BQ * ldq;      // P by key: key kl at kl * FWS_LDP
+  T* ring = reinterpret_cast<T*>(Ps + FWS_BKV * FWS_LDP);  // stage s: K, then V
 
-  const int qi = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FWS_BQ;
   const size_t base = static_cast<size_t>(bh) * S * D;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR;   // the 8 threads of a row sit in one warp
-  const int c = tid % TPR;
-  const int q_pos = qi * BQ + row;
-  const int nd = D / TPR;
+  const int tq = threadIdx.x / 16, tl = threadIdx.x % 16;
+  const int num_k = (S + FWS_BKV - 1) / FWS_BKV;
+  const int n = causal ? min((q0 + FWS_BQ - 1) / FWS_BKV + 1, num_k) : num_k;
 
-  load_tile(Qs, ldq, q + base, qi * BQ, BQ, S, D);
-
-  float m = NEG_INF;
-  float l = 0.0f;
-  float acc[COLS_PER_THREAD];
+  // Key tile i into stage i % FWS_STAGES.
+  auto issue = [&](int i) {
+    T* Ks = ring + (i % FWS_STAGES) * 2 * FWS_BKV * ldk;
+    copy_pair<T, VEC>(Ks, Ks + FWS_BKV * ldk, ldk, k, v, base, i * FWS_BKV, FWS_BKV, S, D);
+  };
 #pragma unroll
-  for (int i = 0; i < COLS_PER_THREAD; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < FWS_STAGES - 1; ++i) {
+    if (i < n) issue(i);
+    sm90::cp_async_commit();
+  }
+  load_rows_f32<T, VEC>(Qs, ldq, q + base, q0, FWS_BQ, S, D);
 
-  const int num_k_blocks = (S + BKV - 1) / BKV;
-  int k_hi = num_k_blocks;
-  if (causal) {
-    // Skip key tiles strictly after this query tile's last position.
-    const int last_q_pos = (qi + 1) * BQ - 1;
-    k_hi = min(last_q_pos / BKV + 1, num_k_blocks);
+  float acc[QPT][NQ][4];
+  float m[QPT], l[QPT];  // running max (log2 domain); this lane's share of the sum
+#pragma unroll
+  for (int a = 0; a < QPT; ++a) {
+    m[a] = NEG_INF;
+    l[a] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NQ; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][c][e] = 0.0f;
+  }
+  const float scale_log2 = scale * sm90::LOG2E;
+
+  for (int i = 0; i < n; ++i) {
+    sm90::cp_async_wait<FWS_STAGES - 2>();
+    __syncthreads();  // tile i (and Q) in place; every thread done with tile i - 1
+    if (i + FWS_STAGES - 1 < n) issue(i + FWS_STAGES - 1);
+    sm90::cp_async_commit();  // K2: one group an iteration, empty or not
+    const int k0 = i * FWS_BKV;
+    const T* Ks = ring + (i % FWS_STAGES) * 2 * FWS_BKV * ldk;
+    const T* Vs = Ks + FWS_BKV * ldk;
+
+    float s[QPT][KPT];  // queries tq + 16 a x keys tl + 16 b
+#pragma unroll
+    for (int a = 0; a < QPT; ++a)
+#pragma unroll
+      for (int b = 0; b < KPT; ++b) s[a][b] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 qf[QPT], kf[KPT];
+#pragma unroll
+      for (int a = 0; a < QPT; ++a) qf[a] = load4(Qs + (tq + 16 * a) * ldq + d);
+#pragma unroll
+      for (int b = 0; b < KPT; ++b) kf[b] = load4(Ks + (tl + 16 * b) * ldk + d);
+#pragma unroll
+      for (int a = 0; a < QPT; ++a)
+#pragma unroll
+        for (int b = 0; b < KPT; ++b) s[a][b] = dot4(qf[a], kf[b], s[a][b]);
+    }
+
+    // Masks only where a key can be invalid: the ragged tail tile and the
+    // tiles that reach past the block's first query.
+    const bool masked = k0 + FWS_BKV > S || (causal && k0 + FWS_BKV - 1 > q0);
+    float alpha[QPT];
+#pragma unroll
+    for (int a = 0; a < QPT; ++a) {
+      const int q_pos = q0 + tq + 16 * a;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int b = 0; b < KPT; ++b) {
+        float x = s[a][b] * scale_log2;
+        const int k_pos = k0 + tl + 16 * b;
+        if (masked && (k_pos >= S || (causal && k_pos > q_pos))) x = NEG_INF;
+        s[a][b] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[a], mx);
+      alpha[a] = exp2f(m[a] - m_new);
+      m[a] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int b = 0; b < KPT; ++b) {
+        s[a][b] = exp2f(s[a][b] - m_new);
+        sum += s[a][b];
+      }
+      l[a] = alpha[a] * l[a] + sum;
+    }
+#pragma unroll
+    for (int b = 0; b < KPT; ++b) {
+      float col[QPT];
+#pragma unroll
+      for (int a = 0; a < QPT; ++a) col[a] = s[a][b];
+      store_n(Ps + (tl + 16 * b) * FWS_LDP + tq * QPT, col);
+    }
+    __syncwarp();  // the query group's P comes from its own 16 lanes
+
+#pragma unroll
+    for (int a = 0; a < QPT; ++a)
+#pragma unroll
+      for (int c = 0; c < NQ; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][c][e] *= alpha[a];
+#pragma unroll 2
+    for (int kl = 0; kl < FWS_BKV; ++kl) {
+      float p[QPT];
+      load_n(p, Ps + kl * FWS_LDP + tq * QPT);
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) {
+        const int col = 4 * (tl + 16 * c);
+        if (col < D) {
+          const float4 vv = load4(Vs + kl * ldk + col);
+#pragma unroll
+          for (int a = 0; a < QPT; ++a) {
+            acc[a][c][0] = fmaf(p[a], vv.x, acc[a][c][0]);
+            acc[a][c][1] = fmaf(p[a], vv.y, acc[a][c][1]);
+            acc[a][c][2] = fmaf(p[a], vv.z, acc[a][c][2]);
+            acc[a][c][3] = fmaf(p[a], vv.w, acc[a][c][3]);
+          }
+        }
+      }
+    }
   }
 
-  for (int kb = 0; kb < k_hi; ++kb) {
-    __syncthreads();  // the previous tile's K/V/P reads are done (and Q is staged)
-    for (int e = tid; e < BKV * D; e += THREADS) {
-      const int r = e / D, d = e % D, p = kb * BKV + r;
-      const bool in = p < S;
-      const size_t off = base + static_cast<size_t>(p) * D + d;
-      Ks[r * ldk + d] = in ? to_float(k[off]) : 0.0f;
-      Vs[r * D + d] = in ? to_float(v[off]) : 0.0f;
+#pragma unroll
+  for (int a = 0; a < QPT; ++a) {
+    float sum = l[a];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const int q_pos = q0 + tq + 16 * a;
+    if (q_pos >= S) continue;
+    const float l_safe = fmaxf(sum, 1e-30f);
+    T* orow = o + base + static_cast<size_t>(q_pos) * D;
+#pragma unroll
+    for (int c = 0; c < NQ; ++c) {
+      const int col = 4 * (tl + 16 * c);
+      if (col < D)
+        store4<VEC>(orow + col, make_float4(acc[a][c][0] / l_safe, acc[a][c][1] / l_safe,
+                                            acc[a][c][2] / l_safe, acc[a][c][3] / l_safe));
     }
-    __syncthreads();
-
-    float s[KEYS_PER_THREAD];
-    float row_max = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < KEYS_PER_THREAD; ++j) {
-      const int key = c + TPR * j;
-      const int k_pos = kb * BKV + key;
-      const float* qrow = Qs + row * ldq;
-      const float* krow = Ks + key * ldk;
-      float dot = 0.0f;
-      for (int d = 0; d < D; ++d) dot = fmaf(qrow[d], krow[d], dot);
-      bool valid = k_pos < S;
-      if (causal) valid = valid && (k_pos <= q_pos);
-      s[j] = valid ? dot * scale : NEG_INF;
-      row_max = fmaxf(row_max, s[j]);
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-    const float m_new = fmaxf(m, row_max);
-    float p_sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < KEYS_PER_THREAD; ++j) {
-      const float p = expf(s[j] - m_new);
-      Ps[row * ldp + c + TPR * j] = p;
-      p_sum += p;
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
-    const float alpha = expf(m - m_new);
-    l = alpha * l + p_sum;
-    m = m_new;
-    __syncwarp();  // the row's P values come from lanes of this same warp
-
-#pragma unroll
-    for (int i = 0; i < COLS_PER_THREAD; ++i)
-      if (i < nd) acc[i] *= alpha;
-    for (int key = 0; key < BKV; ++key) {
-      const float p = Ps[row * ldp + key];
-      const float* vrow = Vs + key * D + c;
-#pragma unroll
-      for (int i = 0; i < COLS_PER_THREAD; ++i)
-        if (i < nd) acc[i] = fmaf(p, vrow[TPR * i], acc[i]);
-    }
-  }
-
-  if (q_pos < S) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    T* orow = o + base + static_cast<size_t>(q_pos) * D + c;
-#pragma unroll
-    for (int i = 0; i < COLS_PER_THREAD; ++i)
-      if (i < nd) orow[TPR * i] = from_float<T>(acc[i] / l_safe);
-    if (c == 0) lse[static_cast<size_t>(bh) * S + q_pos] = m + logf(l_safe);
+    if (tl == 0) lse[static_cast<size_t>(bh) * S + q_pos] = (m[a] + log2f(l_safe)) * sm90::LN2;
   }
 }
 
-// K3: dQ for one (b*h, 32-query tile).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// K3, simt variant: dQ for one (b*h, BQ-query tile), f32 FMAs on the CUDA
+// cores. Q and dO stay in shared memory in f32, each row's lse * log2e and
+// delta in the registers of the threads that own it; DQS_BKV-key K/V tiles
+// stream from key 0 to the causal diagonal through a DQS_STAGES-deep cp.async
+// ring, in the input type. Thread (tq, tl) owns queries tq + 16 a (a < QPT =
+// BQ / 16), as K2's:
+// - S = Q K^T and dP = dO V^T: keys tl and tl + 16 of each tile, in float4
+//   reads of Q, dO, K and V rows: 64 FMAs per 12 loads (QPT = 4), K4's
+//   S^T and dP^T transposed;
+// - P = exp2(S * scale * log2e - lse * log2e) under the forward's masks
+//   (only on the tiles a ragged row or key, or the diagonal, can fall in) and
+//   dS = P (dP - delta) * scale, written once to shared memory by key, the
+//   thread's queries adjacent, read back by its own query group (__syncwarp);
+// - dQ += dS K: columns 4 (tl + 16 c) .. + 3 (c < NQ), f32 registers across
+//   the walk; per key QPT floats of dS and NQ float4s of K.
+// The longest causal walks launch first. One summation order, no atomics.
+// BQ is 64 queries at D <= 64 and 128 above (dqs_bq): at D = 128 in f32 a
+// block's 144 KB of 64-query tiles leave room for one block an SM, whose 8
+// warps hide latency better with 8 queries a thread (1.99 against 2.64 ms at
+// (1, 32, 2048, 128) f32 causal), while at D = 64 two or three blocks share
+// an SM and 64 queries measured 3% faster (1.000 against 1.033 ms at (4, 32,
+// 1024, 64); 32 queries 1.265; NVIDIA H100 80GB HBM3, 700 W;
+// tpu_cc_manager_torch/bench/kernel_variants.py).
+// VEC: q, k, v, dO and dq start on 16 bytes.
+
+constexpr int DQS_BQ = 64;                  // queries per block at D <= 64
+constexpr int DQS_BQ_WIDE = 128;            // queries per block at D > 64
+constexpr int DQS_BKV = 32;                 // keys per streamed tile
+constexpr int DQS_STAGES = 2;               // K/V ring depth
+
+__host__ __device__ constexpr int dqs_bq(int D) { return D <= 64 ? DQS_BQ : DQS_BQ_WIDE; }
+
+// Q and dO (dqs_bq(D) x D+4 f32 each), the stages' K and V (DQS_BKV rows of D
+// elements + 16 bytes each), dS (DQS_BKV x dqs_bq(D)+4 f32).
+// ops/flash_attention.py::dq_simt_smem_bytes is the same count.
+__host__ __device__ constexpr size_t dq_smem_bytes(int D, int elem_bytes) {
+  return 2 * static_cast<size_t>(dqs_bq(D)) * (D + 4) * 4 +
+         2 * static_cast<size_t>(DQS_STAGES) * DQS_BKV * (D * elem_bytes + 16) +
+         static_cast<size_t>(DQS_BKV) * (dqs_bq(D) + 4) * 4;
+}
+
+template <typename T, int NQ, bool VEC>
+__global__ void __launch_bounds__(SIMT_THREADS)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         T* __restrict__ dq, int S, int D, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  const int ldp = BKV + 1;
-  float* Qs = smem;
-  float* dOs = Qs + BQ * ld;
-  float* Ks = dOs + BQ * ld;
-  float* Vs = Ks + BKV * ld;
-  float* dSs = Vs + BKV * ld;
+  constexpr int BQ = dqs_bq(64 * NQ);  // queries per block
+  constexpr int LDP = BQ + 4;          // a key's row of dS, padded
+  constexpr int QPT = BQ / 16;         // queries a thread owns
+  constexpr int KPT = DQS_BKV / 16;    // keys a thread takes in S and dP
+  constexpr int E = 16 / sizeof(T);  // elements in 16 bytes
+  extern __shared__ float4 dq_smem[];
+  const int ldq = D + 4;             // a Q or dO row (f32)
+  const int ldk = D + E;             // a K or V row (T)
+  float* Qs = reinterpret_cast<float*>(dq_smem);
+  float* dOs = Qs + BQ * ldq;
+  float* dSs = dOs + BQ * ldq;    // dS by key: key kl at kl * LDP
+  T* ring = reinterpret_cast<T*>(dSs + DQS_BKV * LDP);  // stage s: K, then V
 
-  const int qi = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const size_t base = static_cast<size_t>(bh) * S * D;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR;   // the 8 threads of a row sit in one warp
-  const int c = tid % TPR;
-  const int q_pos = qi * BQ + row;
-  const int nd = D / TPR;
-  const bool row_valid = q_pos < S;
+  const int tq = threadIdx.x / 16, tl = threadIdx.x % 16;
+  const int num_k = (S + DQS_BKV - 1) / DQS_BKV;
+  const int n = causal ? min((q0 + BQ - 1) / DQS_BKV + 1, num_k) : num_k;
+
+  // Key tile i into stage i % DQS_STAGES.
+  auto issue = [&](int i) {
+    T* Ks = ring + (i % DQS_STAGES) * 2 * DQS_BKV * ldk;
+    copy_pair<T, VEC>(Ks, Ks + DQS_BKV * ldk, ldk, k, v, base, i * DQS_BKV, DQS_BKV, S, D);
+  };
+#pragma unroll
+  for (int i = 0; i < DQS_STAGES - 1; ++i) {
+    if (i < n) issue(i);
+    sm90::cp_async_commit();
+  }
+  load_rows_f32<T, VEC>(Qs, ldq, q + base, q0, BQ, S, D);
+  load_rows_f32<T, VEC>(dOs, ldq, dout + base, q0, BQ, S, D);
+
   // A phantom row keeps lse = delta = 0: its scores are masked, so P = 0.
-  const float row_lse = row_valid ? lse[static_cast<size_t>(bh) * S + q_pos] : 0.0f;
-  const float row_delta = row_valid ? delta[static_cast<size_t>(bh) * S + q_pos] : 0.0f;
-
-  load_tile(Qs, ld, q + base, qi * BQ, BQ, S, D);
-  load_tile(dOs, ld, dout + base, qi * BQ, BQ, S, D);
-
-  float acc[COLS_PER_THREAD];
+  float lse2[QPT], dl[QPT], acc[QPT][NQ][4];
 #pragma unroll
-  for (int i = 0; i < COLS_PER_THREAD; ++i) acc[i] = 0.0f;
-
-  const int num_k_blocks = (S + BKV - 1) / BKV;
-  int k_hi = num_k_blocks;
-  if (causal) {
-    const int last_q_pos = (qi + 1) * BQ - 1;
-    k_hi = min(last_q_pos / BKV + 1, num_k_blocks);
+  for (int a = 0; a < QPT; ++a) {
+    const int q_pos = q0 + tq + 16 * a;
+    const size_t row = static_cast<size_t>(bh) * S + q_pos;
+    lse2[a] = q_pos < S ? lse[row] * sm90::LOG2E : 0.0f;
+    dl[a] = q_pos < S ? delta[row] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < NQ; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][c][e] = 0.0f;
   }
+  const float scale_log2 = scale * sm90::LOG2E;
 
-  for (int kb = 0; kb < k_hi; ++kb) {
-    __syncthreads();  // the previous tile's K/V/dS reads are done (and Q/dO are staged)
-    load_tile(Ks, ld, k + base, kb * BKV, BKV, S, D);
-    load_tile(Vs, ld, v + base, kb * BKV, BKV, S, D);
-    __syncthreads();
+  for (int i = 0; i < n; ++i) {
+    sm90::cp_async_wait<DQS_STAGES - 2>();
+    __syncthreads();  // tile i (and Q, dO) in place; every thread done with tile i - 1
+    if (i + DQS_STAGES - 1 < n) issue(i + DQS_STAGES - 1);
+    sm90::cp_async_commit();  // K3: one group an iteration, empty or not
+    const int k0 = i * DQS_BKV;
+    const T* Ks = ring + (i % DQS_STAGES) * 2 * DQS_BKV * ldk;
+    const T* Vs = Ks + DQS_BKV * ldk;
 
-    const float* qrow = Qs + row * ld;
-    const float* dorow = dOs + row * ld;
+    float st[QPT][KPT], dpt[QPT][KPT];  // S and dP: queries tq + 16 a x keys tl + 16 b
 #pragma unroll
-    for (int j = 0; j < KEYS_PER_THREAD; ++j) {
-      const int key = c + TPR * j;
-      const int k_pos = kb * BKV + key;
-      const float* krow = Ks + key * ld;
-      const float* vrow = Vs + key * ld;
-      float s = 0.0f, dp = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qrow[d], krow[d], s);
-        dp = fmaf(dorow[d], vrow[d], dp);
+    for (int a = 0; a < QPT; ++a)
+#pragma unroll
+      for (int b = 0; b < KPT; ++b) st[a][b] = dpt[a][b] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 qf[QPT], of[QPT], kf[KPT], vf[KPT];
+#pragma unroll
+      for (int a = 0; a < QPT; ++a) {
+        qf[a] = load4(Qs + (tq + 16 * a) * ldq + d);
+        of[a] = load4(dOs + (tq + 16 * a) * ldq + d);
       }
-      bool valid = row_valid && k_pos < S;
-      if (causal) valid = valid && (k_pos <= q_pos);
-      const float p = expf((valid ? s * scale : NEG_INF) - row_lse);
-      dSs[row * ldp + key] = p * (dp - row_delta) * scale;
-    }
-    __syncwarp();  // the row's dS values come from lanes of this same warp
-
-    for (int key = 0; key < BKV; ++key) {
-      const float ds = dSs[row * ldp + key];
-      const float* krow = Ks + key * ld + c;
 #pragma unroll
-      for (int i = 0; i < COLS_PER_THREAD; ++i)
-        if (i < nd) acc[i] = fmaf(ds, krow[TPR * i], acc[i]);
+      for (int b = 0; b < KPT; ++b) {
+        kf[b] = load4(Ks + (tl + 16 * b) * ldk + d);
+        vf[b] = load4(Vs + (tl + 16 * b) * ldk + d);
+      }
+#pragma unroll
+      for (int a = 0; a < QPT; ++a)
+#pragma unroll
+        for (int b = 0; b < KPT; ++b) {
+          st[a][b] = dot4(qf[a], kf[b], st[a][b]);
+          dpt[a][b] = dot4(of[a], vf[b], dpt[a][b]);
+        }
+    }
+
+    // Masks only where a (query, key) pair can be invalid: the ragged tiles
+    // and the tiles that reach past the block's first query.
+    const bool masked = q0 + BQ > S || k0 + DQS_BKV > S || (causal && k0 + DQS_BKV - 1 > q0);
+#pragma unroll
+    for (int b = 0; b < KPT; ++b) {
+      const int k_pos = k0 + tl + 16 * b;
+      float ds[QPT];
+#pragma unroll
+      for (int a = 0; a < QPT; ++a) {
+        const int q_pos = q0 + tq + 16 * a;
+        float x = st[a][b] * scale_log2 - lse2[a];
+        if (masked && (q_pos >= S || k_pos >= S || (causal && k_pos > q_pos))) x = NEG_INF;
+        ds[a] = exp2f(x) * (dpt[a][b] - dl[a]) * scale;
+      }
+      store_n(dSs + (tl + 16 * b) * LDP + tq * QPT, ds);
+    }
+    __syncwarp();  // the query group's dS comes from its own 16 lanes
+
+#pragma unroll 2
+    for (int kl = 0; kl < DQS_BKV; ++kl) {
+      float ds[QPT];
+      load_n(ds, dSs + kl * LDP + tq * QPT);
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) {
+        const int col = 4 * (tl + 16 * c);
+        if (col < D) {
+          const float4 kv = load4(Ks + kl * ldk + col);
+#pragma unroll
+          for (int a = 0; a < QPT; ++a) {
+            acc[a][c][0] = fmaf(ds[a], kv.x, acc[a][c][0]);
+            acc[a][c][1] = fmaf(ds[a], kv.y, acc[a][c][1]);
+            acc[a][c][2] = fmaf(ds[a], kv.z, acc[a][c][2]);
+            acc[a][c][3] = fmaf(ds[a], kv.w, acc[a][c][3]);
+          }
+        }
+      }
     }
   }
 
-  if (row_valid) {
-    T* dqrow = dq + base + static_cast<size_t>(q_pos) * D + c;
 #pragma unroll
-    for (int i = 0; i < COLS_PER_THREAD; ++i)
-      if (i < nd) dqrow[TPR * i] = from_float<T>(acc[i]);
+  for (int a = 0; a < QPT; ++a) {
+    const int q_pos = q0 + tq + 16 * a;
+    if (q_pos >= S) continue;
+    T* dqrow = dq + base + static_cast<size_t>(q_pos) * D;
+#pragma unroll
+    for (int c = 0; c < NQ; ++c) {
+      const int col = 4 * (tl + 16 * c);
+      if (col < D)
+        store4<VEC>(dqrow + col,
+                    make_float4(acc[a][c][0], acc[a][c][1], acc[a][c][2], acc[a][c][3]));
+    }
   }
 }
 
@@ -378,6 +669,7 @@ __global__ void __launch_bounds__(THREADS)
 constexpr int DKV_BKV = 64;                 // keys per block
 constexpr int DKV_BQ = 32;                  // queries per streamed tile
 constexpr int DKV_THREADS = 256;            // 16 key groups x 16 lanes
+static_assert(DKV_THREADS == SIMT_THREADS, "K4 copies with K2's and K3's helpers");
 constexpr int DKV_LDP = DKV_BKV + 4;        // a query's row of P^T (or dS^T), padded
 
 // K and V (64 x D+4 f32 each), the two stages' Q and dO (32 rows of D
@@ -388,21 +680,6 @@ __host__ __device__ constexpr size_t dkv_smem_bytes(int D, int elem_bytes) {
   return 2 * static_cast<size_t>(DKV_BKV) * (D + 4) * 4 +
          4 * static_cast<size_t>(DKV_BQ) * (D * elem_bytes + 16) +
          2 * static_cast<size_t>(DKV_BQ) * DKV_LDP * 4 + 4 * static_cast<size_t>(DKV_BQ) * 4;
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
 template <typename T, int NQ, bool VEC>
@@ -429,7 +706,6 @@ __global__ void __launch_bounds__(DKV_THREADS)
   const size_t base = static_cast<size_t>(bh) * S * D;
   const int tid = threadIdx.x;
   const int tk = tid / 16, tl = tid % 16;
-  const int pieces = D / E;          // 16-byte pieces of a row
   const int q_start = causal ? k_first / DKV_BQ : 0;
   const int n = (S + DKV_BQ - 1) / DKV_BQ - q_start;
 
@@ -437,21 +713,7 @@ __global__ void __launch_bounds__(DKV_THREADS)
   auto issue = [&](int i) {
     const int q0 = (q_start + i) * DKV_BQ;
     T* Qs = ring + (i & 1) * 2 * DKV_BQ * ldq;
-    T* dOs = Qs + DKV_BQ * ldq;
-    for (int e = tid; e < DKV_BQ * pieces; e += DKV_THREADS) {
-      const int r = e / pieces, c = (e % pieces) * E;
-      const bool in = q0 + r < S;
-      const size_t off = base + static_cast<size_t>(q0 + r) * D + c;
-      if constexpr (VEC) {
-        sm90::cp_async_16(Qs + r * ldq + c, in ? q + off : q, in ? 16 : 0);
-        sm90::cp_async_16(dOs + r * ldq + c, in ? dout + off : dout, in ? 16 : 0);
-      } else {
-        for (int t = 0; t < E; ++t) {
-          Qs[r * ldq + c + t] = in ? q[off + t] : from_float<T>(0.0f);
-          dOs[r * ldq + c + t] = in ? dout[off + t] : from_float<T>(0.0f);
-        }
-      }
-    }
+    copy_pair<T, VEC>(Qs, Qs + DKV_BQ * ldq, ldq, q, dout, base, q0, DKV_BQ, S, D);
     float* ls = vec + (i & 1) * 2 * DKV_BQ;
     for (int e = tid; e < DKV_BQ; e += DKV_THREADS) {
       const bool in = q0 + e < S;
@@ -463,13 +725,8 @@ __global__ void __launch_bounds__(DKV_THREADS)
 
   if (n > 0) issue(0);
   sm90::cp_async_commit();
-  for (int e = tid; e < DKV_BKV * D; e += DKV_THREADS) {  // K and V, resident, in f32
-    const int r = e / D, d = e % D, p = k_first + r;
-    const bool in = p < S;
-    const size_t off = base + static_cast<size_t>(p) * D + d;
-    Ks[r * ldk + d] = in ? to_float(k[off]) : 0.0f;
-    Vs[r * ldk + d] = in ? to_float(v[off]) : 0.0f;
-  }
+  load_rows_f32<T, false>(Ks, ldk, k + base, k_first, DKV_BKV, S, D);  // K and V, resident
+  load_rows_f32<T, false>(Vs, ldk, v + base, k_first, DKV_BKV, S, D);
 
   float dk_acc[4][NQ][4], dv_acc[4][NQ][4];
 #pragma unroll
@@ -596,16 +853,43 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+template <typename T, int NQ, bool VEC>
+int launch_fwd_simt(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                    int S, int D, float scale, int causal, void* stream) {
+  const size_t bytes = fwd_smem_bytes(D, sizeof(T));
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, NQ, VEC>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(BH, (S + FWS_BQ - 1) / FWS_BQ);
+  flash_fwd_kernel<T, NQ, VEC><<<grid, SIMT_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, S, D, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                int BH, int S, int D, float scale, int causal, void* stream) {
-  const size_t bytes = fwd_smem_floats(D) * sizeof(float);
-  cudaError_t err = allow_smem(flash_fwd_kernel<T>, bytes);
+  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  if (D <= 64)
+    return vec ? launch_fwd_simt<T, 1, true>(q, k, v, o, lse, BH, S, D, scale, causal, stream)
+               : launch_fwd_simt<T, 1, false>(q, k, v, o, lse, BH, S, D, scale, causal, stream);
+  return vec ? launch_fwd_simt<T, 2, true>(q, k, v, o, lse, BH, S, D, scale, causal, stream)
+             : launch_fwd_simt<T, 2, false>(q, k, v, o, lse, BH, S, D, scale, causal, stream);
+}
+
+template <typename T, int NQ, bool VEC>
+int launch_bwd_dq_simt(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dq, int BH, int S, int D,
+                       float scale, int causal, void* stream) {
+  const size_t bytes = dq_smem_bytes(D, sizeof(T));
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, NQ, VEC>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + BQ - 1) / BQ, BH);
-  flash_fwd_kernel<T><<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid(BH, (S + dqs_bq(D) - 1) / dqs_bq(D));
+  flash_bwd_dq_kernel<T, NQ, VEC><<<grid, SIMT_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, S, D, scale, causal);
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), S, D, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -613,14 +897,17 @@ template <typename T>
 int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dq, int BH, int S, int D,
                   float scale, int causal, void* stream) {
-  const size_t bytes = bwd_smem_floats(D) * sizeof(float);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + BQ - 1) / BQ, BH);
-  flash_bwd_dq_kernel<T><<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), S, D, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
+                   aligned16(dq);
+  if (D <= 64)
+    return vec ? launch_bwd_dq_simt<T, 1, true>(q, k, v, dout, lse, delta, dq, BH, S, D, scale,
+                                                causal, stream)
+               : launch_bwd_dq_simt<T, 1, false>(q, k, v, dout, lse, delta, dq, BH, S, D, scale,
+                                                 causal, stream);
+  return vec ? launch_bwd_dq_simt<T, 2, true>(q, k, v, dout, lse, delta, dq, BH, S, D, scale,
+                                              causal, stream)
+             : launch_bwd_dq_simt<T, 2, false>(q, k, v, dout, lse, delta, dq, BH, S, D, scale,
+                                               causal, stream);
 }
 
 template <typename T, int NQ, bool VEC>
@@ -642,8 +929,7 @@ template <typename T>
 int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dk, void* dv, int BH,
                    int S, int D, float scale, int causal, void* stream) {
-  const bool vec = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dout) % 16 == 0;
+  const bool vec = aligned16(q) && aligned16(dout);
   if (D <= 64)
     return vec ? launch_bwd_dkv_simt<T, 1, true>(q, k, v, dout, lse, delta, dk, dv, BH, S, D,
                                                  scale, causal, stream)

@@ -25,9 +25,11 @@ failure):
   and the einsum Llama path round P before PV (and autograd of the einsum
   rounds dS); the plain versions do the same for these inputs;
 - ``"simt"`` for f32 and every other D: every product in f32 on the CUDA
-  cores. K4's is register-tiled behind a cp.async ring (64 keys a block,
-  32-query tiles, shared memory :func:`dkv_simt_smem_bytes`); K2's and
-  K3's are the first kernels.
+  cores, register-tiled behind a cp.async ring. K2 takes 64 queries a block
+  and K3 64 at D <= 64 and 128 above (:func:`dq_simt_queries`); both stream
+  32-key K/V tiles (shared memory :func:`fwd_simt_smem_bytes`,
+  :func:`dq_simt_smem_bytes`). K4 takes 64 keys a block and streams
+  32-query tiles (:func:`dkv_simt_smem_bytes`).
 
 ``block_q``/``block_k`` tile the plain versions as they tile the Pallas
 kernels (rounded up to a multiple of 8 and clamped, :func:`_block_for`). The
@@ -66,6 +68,40 @@ def dkv_simt_smem_bytes(head_dim: int, itemsize: int) -> int:
     keys, queries = DKV_SIMT_KEYS, DKV_SIMT_QUERIES
     return (2 * keys * (head_dim + 4) * 4 + 4 * queries * (head_dim * itemsize + 16)
             + 2 * queries * (keys + 4) * 4 + 4 * queries * 4)
+
+
+#: The simt K2's block: queries per block, keys per streamed tile, ring depth.
+FWD_SIMT_QUERIES, FWD_SIMT_KEYS, FWD_SIMT_STAGES = 64, 32, 2
+
+
+def fwd_simt_smem_bytes(head_dim: int, itemsize: int) -> int:
+    """The simt K2's dynamic shared memory (csrc/flash_attention.cu::
+    fwd_smem_bytes): Q resident in f32 (64 rows of D + 4), the stages' K and
+    V in the input type (32 rows of D elements + 16 bytes each), P (32 x 68
+    f32)."""
+    queries, keys, stages = FWD_SIMT_QUERIES, FWD_SIMT_KEYS, FWD_SIMT_STAGES
+    return (queries * (head_dim + 4) * 4 + 2 * stages * keys * (head_dim * itemsize + 16)
+            + keys * (queries + 4) * 4)
+
+
+#: The simt K3's block: queries per block at D <= 64 and above, keys per
+#: streamed tile, ring depth.
+DQ_SIMT_QUERIES, DQ_SIMT_QUERIES_WIDE, DQ_SIMT_KEYS, DQ_SIMT_STAGES = 64, 128, 32, 2
+
+
+def dq_simt_queries(head_dim: int) -> int:
+    """The simt K3's queries per block (csrc/flash_attention.cu::dqs_bq)."""
+    return DQ_SIMT_QUERIES if head_dim <= 64 else DQ_SIMT_QUERIES_WIDE
+
+
+def dq_simt_smem_bytes(head_dim: int, itemsize: int) -> int:
+    """The simt K3's dynamic shared memory (csrc/flash_attention.cu::
+    dq_smem_bytes): Q and dO resident in f32 (:func:`dq_simt_queries` rows of
+    D + 4 each), the stages' K and V in the input type (32 rows of D
+    elements + 16 bytes each), dS (32 rows of the queries + 4, f32)."""
+    queries, keys, stages = dq_simt_queries(head_dim), DQ_SIMT_KEYS, DQ_SIMT_STAGES
+    return (2 * queries * (head_dim + 4) * 4 + 2 * stages * keys * (head_dim * itemsize + 16)
+            + keys * (queries + 4) * 4)
 
 
 def _rounds_p(q) -> bool:
