@@ -65,10 +65,9 @@ counts at 0 just before it and read just after:
 5. the matmul smoke through the agent's runner with ``--kernel torch`` and
    ``--kernel cuda`` (the latter must show K1 launches, all on "sm90", at
    the default tiling); each must report ``devices`` =
-   ``torch.cuda.device_count()`` and each card's oracles; then ``--kernel
-   cuda --cuda-blocks`` at phase 3's fastest tile (ok, those blocks, the
-   same K1 count) and at a tile left out (one ``{"ok": false}`` line naming
-   the set, exit 1, nothing launched);
+   ``torch.cuda.device_count()`` and each card's oracles (``--cuda-blocks``
+   runs in phase 22's tile sweep, at phase 3's fastest tile among others
+   and at a tile left out);
 6. the Llama-3-8B inference smoke at full width (32 layers, dim 4096, GQA
    32/8, vocab 128256, bf16, batch 4): all three oracles and K2 launches on
    every visible card (``devices`` and each card's oracles printed); the
@@ -87,7 +86,10 @@ counts at 0 just before it and read just after:
    fresh state must repeat every printed digit of the loss, and the flash
    path's gradient must match the einsum path's on the same weights;
    ms/step (beside the one-device step's time before FSDP2), tokens/s, MFU,
-   peak memory and one profiled step;
+   peak memory and one profiled step; then the same step at the same width
+   and ``TRAIN_CUT_LAYERS`` of its 16 layers (cut for time), 8 steps, whose
+   losses must fall and are the reference of phases 12 and 20, which train
+   at that depth;
 8. the ResNet-50 training smoke through the agent's runner at full width
    (224², 1000 classes, batch 64 per card, bf16 activations, f32
    parameters): ok, one rank on every visible card (``devices`` and each
@@ -128,13 +130,16 @@ counts at 0 just before it and read just after:
    backward on one shared thread, so threads cannot run the backward;
 12. the train step at ``{tp: 2}`` in two processes on this one card over a
    gloo group (NCCL refuses two ranks of one communicator on one GPU; gloo
-   stages CUDA tensors through the host): 3 Llama-3.2-1B steps from seed 0
-   on phase 7's batch, through ``make_llama_train_state`` /
+   stages CUDA tensors through the host): 3 Llama-3.2-1B steps at its width
+   and ``TRAIN_CUT_LAYERS`` of its layers (cut for time) from seed 0 on phase
+   7's batch, through ``make_llama_train_state`` /
    ``make_llama_train_step``; both ranks' losses must be equal and within
-   1e-3 of phase 7's first three, with 16 ``sm90`` launches each of K2/K3/K4
-   per step on each rank; step seconds and peak memory per rank; then the
-   same run with ``copy_to_tp`` dropped (no column-parallel input's
-   gradient summed over tp), whose losses must miss that limit;
+   1e-3 of the first three of phase 7's step at that depth, with one
+   ``sm90`` launch each of K2/K3/K4 a layer per step on each rank; step
+   seconds and peak memory per rank; then, in the same processes from a
+   fresh state, the same run with ``copy_to_tp`` dropped (no
+   column-parallel input's gradient summed over tp), whose losses must miss
+   that limit;
 13. the Llama-3-8B smoke as one tp = 2 group, as a 4-card node runs each of
    its groups: two processes on this card over gloo, each calling the
    per-rank function the runner's workers call (``verify_replica`` with
@@ -261,8 +266,9 @@ counts at 0 just before it and read just after:
 20. a training job through a CC flip by the drain handshake
    (``job_through_flip``): against ``hack/mock_apiserver.py``, a job
    process (``python -m tpu_cc_manager_torch.ccmanager.localrig job``)
-   trains Llama-3.2-1B at its published width and depth (phase 7's
-   configuration, seed and batch) and holds at step 3; the sidecar
+   trains Llama-3.2-1B at its published width and ``TRAIN_CUT_LAYERS`` of
+   its layers (cut for time; phase 7's configuration, seed and batch) and
+   holds at step 3; the sidecar
    ``python -m tpu_cc_manager_torch.ctl drain-subscribe`` (its
    ``--on-drain`` asks the job to checkpoint through ``TrainCheckpointer``
    and waits for its exit, its ``--on-resume`` starts a job that restores
@@ -272,8 +278,9 @@ counts at 0 just before it and read just after:
    land before any component pause and the job must have exited before the
    first reset (the trace file's spans), the node must be on and ready
    within the 90 s budget, one verify smoke with phase 5's K1 count on
-   every card, all ``sm90``, the losses of both jobs must be phase 7's at
-   every printed digit, each step must launch K2/K3/K4 once per layer on
+   every card, all ``sm90``, the losses of both jobs must be those of phase
+   7's step at that depth at every printed digit, each step must launch
+   K2/K3/K4 once per layer on
    ``sm90``, and ``attest.verify`` must sit under the reconcile's trace id.
    The checkpoint's bytes, save and restore seconds, the handshake's wait,
    drain->ready with its phase seconds and the job's downtime are printed;
@@ -290,17 +297,42 @@ counts at 0 just before it and read just after:
    ``bench_ab --workloads matmul --reps 2 --cycles 1``: both arms on the
    card (both CC off: the fake device layer), the loss with its 95% CI
    half-width printed;
-22. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
+22. the measurement tools on the card (``tpu_cc_manager_torch/bench/``, the
+   port of the repository's ``hack/`` tools), each a process: (a) the tile
+   sweep ``tune_cuda`` at 4096 over ``SWEEP_TILES`` (and phase 3's fastest
+   tile, if they lack it) with ``SWEEP_REFUSED`` (a tile the kernel refuses
+   by design) second: every valid rung ok, with valid timing, the card's
+   variant as its ``generation``, the tile asked for and phase 5's K1
+   count, all ``sm90``; the refused rung's error line (naming the compiled
+   set and why the tile is left out, no launch counts: refused before
+   anything loads) recorded with its tag and the sweep gone on past it; the
+   same sweep with ``RESUME=1`` skipping every rung (no header added to its
+   error log, its artifact unchanged); ``apply_sweep`` printing the fastest valid rung's
+   ``DEFAULT_BLOCKS`` entry (beside the table's, which phase 3's device-time
+   ranking over 9 rounds set: not asserted equal); ``apply_sweep --write``
+   on a copy of the package under ``build/chip_smoke_tools/``, whose
+   ``default_blocks`` must then give that rung's tile, the repository's
+   ``ops/matmul.py`` unchanged; (b) the batch ladder ``batch_ladder`` with
+   the Llama smoke at ``LADDER_SIZE`` and ``LADDER_BATCHES``, both rungs ok
+   on the card, their tokens/s, ms/token and HBM bandwidth use printed; (c)
+   the serving bench ``serve_bench --calibrate-smoke`` in its default mode
+   (a closed-loop rolling flip of ``SERVE_NODES`` nodes over
+   ``SERVE_TRAFFIC_S`` s of traffic), ok by the reference's terms (the
+   rollout ok, no request lost, every node bounced, latency samples during
+   the rollout and in steady state) with its calibration from the port's
+   default Llama smoke on the card, printed beside phase 6's; the phase's
+   wall beside its 150 s budget;
+23. one ``{"kernels": [...]}`` JSON line, one entry per kernel, variant and
    timed shape that the script checks against its plain version, each
    marked ``on_path`` when a path launched it (the f32 K1 and the simt K3
    and K4 run on no path; the ResNet and ring paths run none of K1-K4: the
    ResNet's convolutions are cuDNN's, as the JAX package's are XLA's, and
    the ring's blocks are plain PyTorch, as the JAX ring's are XLA einsums),
    then the ``nvidia-smi`` line;
-23. last line ``{"ok": true, "device": {...}}``.
+24. last line ``{"ok": true, "device": {...}}``.
 
-Before phases 12, 13, 20 and 21, which start processes on this card, the
-script prints what its own process still holds there. Every verify smoke
+Before phases 12, 13, 20, 21 and 22, which start processes on this card,
+the script prints what its own process still holds there. Every verify smoke
 of phases 15-21 must report K1 at the default tiling for its card and
 size (``default_blocks``), with phase 5's K1 count.
 
@@ -361,6 +393,13 @@ TRANSCRIPT_LIMIT = 1e-2  # the Llama smoke's argmax margin (smoke/llama_infer.py
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
 TRAIN_GRAD_LIMIT = 5e-2
 DETERMINISM_STEPS = 3  # rerun on fresh state; the losses must repeat
+# Phases 12 and 20 train the 1B at its width and TRAIN_CUT_LAYERS of its 16
+# layers, held against phase 7's step at that depth (``train_at_depth``):
+# the exchange over gloo, the fault, the checkpoint and the handshake are
+# the same at any depth, and the script took 943-947 s of its 1200 s
+# before phase 22 came (phase 20 took 104.4 s and phase 12 69.8 s at full
+# depth on an H100 80GB HBM3 at 700 W).
+TRAIN_CUT_LAYERS = 4
 # The 1B step on one device before the state was sharded with FSDP2 (one
 # NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's.
 ONE_DEVICE_STEP_MS = 336.51
@@ -477,12 +516,13 @@ FED_KILL_POINT = "federation-boundary"
 FED_BUDGET = 1
 
 # Phase 20, a training job through a CC flip on the card: Llama-3.2-1B at
-# its published width and depth trains phase 7's batch from phase 7's seed
-# beside the agent CLI; the sidecar ``ctl drain-subscribe`` asks it to
-# checkpoint when the agent drains the node, and starts a job that restores
-# the checkpoint once the node is back. The first job holds at
-# ``JOB_HOLD_AT`` until the drain; the resumed one trains to phase 7's last
-# step, and its losses must be phase 7's.
+# its published width and TRAIN_CUT_LAYERS of its layers trains phase 7's
+# batch from phase 7's seed beside the agent CLI; the sidecar ``ctl
+# drain-subscribe`` asks it to checkpoint when the agent drains the node,
+# and starts a job that restores the checkpoint once the node is back. The
+# first job holds at ``JOB_HOLD_AT`` until the drain; the resumed one trains
+# to phase 7's last step, and its losses must be those of phase 7's step at
+# that depth.
 JOB_SUBSCRIBER = "train"
 JOB_HOLD_AT = 3
 JOB_ACK_TIMEOUT_S = 300  # the agent's CC_DRAIN_ACK_TIMEOUT_S: above the save
@@ -501,6 +541,19 @@ PATH_VARIANTS = {"K1/sm90", "K2/sm90", "K2/simt", "K3/sm90", "K4/sm90"}
 BENCH_REALISTIC_RUNS = 1
 AB_REPS, AB_CYCLES = 2, 1
 BENCH_TIMEOUT_S = 400
+# Phase 22, the measurement tools on the card (tpu_cc_manager_torch/bench/),
+# each a process from the repository root. The tile sweep's tiles at
+# SWEEP_SIZE: the card's default, the next of phase 3's ranking and the
+# fallback, with a tile the kernel refuses by design second, so the sweep
+# must go on past it; the batch ladder's Llama size and batches; the serving
+# bench's pool and traffic window (the reference's default window is 8 s).
+SWEEP_SIZE = 4096
+SWEEP_TILES = ((256, 128, 64), (128, 256, 64), (128, 128, 64))
+SWEEP_REFUSED = (256, 256, 128)
+LADDER_SIZE, LADDER_BATCHES = "llama3.2-1b", (1, 4)
+SERVE_NODES, SERVE_TRAFFIC_S = 3, 3.0
+TOOLS_TIMEOUT_S = 300
+TOOLS_BUDGET_S = 150  # the phase's wall, printed beside it
 # The launch counts of a path, every kernel and variant.
 COUNT_KEYS = ("K1", "K2", "K3", "K4", "K1/sm90", "K1/simt", "K2/sm90", "K2/simt", "K3/sm90",
               "K3/simt", "K4/sm90", "K4/simt")
@@ -1045,48 +1098,6 @@ def tiling_problem(res: dict) -> str | None:
     return None
 
 
-def check_cuda_blocks_cli(winner: list, smoke_k1: int) -> dict:
-    """``python -m tpu_cc_manager_torch.smoke --workload matmul --kernel cuda
-    --cuda-blocks`` as a child: at the sweep's fastest tile it must pass and
-    report those blocks with ``smoke_k1`` sm90 launches; at a tile left out
-    it must print one ``{"ok": false}`` line naming the set and exit 1
-    before any launch (the refusal comes before the kernel library is even
-    loaded). Returns the passing run's launch counts."""
-    from tpu_cc_manager_torch.ops.matmul import SM90_LEFT_OUT
-    from tpu_cc_manager_torch.smoke.runner import SmokeError, run_workload_subprocess
-
-    arg = ",".join(str(b) for b in winner)
-    t0 = time.perf_counter()
-    try:
-        res = run_workload_subprocess("matmul", timeout_s=300,
-                                      extra_args=["--kernel", "cuda", "--cuda-blocks", arg])
-    except SmokeError as e:
-        fail(f"matmul smoke --cuda-blocks {arg}: {e}")
-    launches = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
-    say(f"matmul smoke --cuda-blocks {arg}: ok={res['ok']} blocks={res['blocks']} "
-        f"size={res['size']} tflops={res['tflops']} mfu={res['mfu']} K1 sm90="
-        f"{launches['K1/sm90']} simt={launches['K1/simt']}; child wall "
-        f"{time.perf_counter() - t0:.2f} s")
-    if res["blocks"] != winner or launches["K1/sm90"] != smoke_k1 or launches["K1/simt"]:
-        fail(f"matmul smoke --cuda-blocks {arg} reported blocks {res['blocks']} with K1 "
-             f"{launches}, want {winner} with {smoke_k1} on sm90")
-    refused = next(iter(SM90_LEFT_OUT))
-    arg = ",".join(str(b) for b in refused)
-    proc = subprocess.run(
-        [sys.executable, "-m", "tpu_cc_manager_torch.smoke", "--workload", "matmul",
-         "--kernel", "cuda", "--cuda-blocks", arg],
-        capture_output=True, text=True, timeout=300,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    lines = proc.stdout.strip().splitlines()
-    last = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
-    say(f"matmul smoke --cuda-blocks {arg}: rc={proc.returncode} {proc.stdout.strip()[-300:]}")
-    if proc.returncode != 1 or len(lines) != 1 or last.get("ok") is not False or \
-            "compiled for the tiles" not in last.get("error", ""):
-        fail(f"matmul smoke --cuda-blocks {arg} was not refused on one line with rc 1: "
-             f"rc={proc.returncode} {proc.stdout[-1000:]} {proc.stderr[-1000:]}")
-    return launches
-
-
 def expected_variant(dtype, D: int) -> str:
     """The K2/K3/K4 kernel that inputs of this dtype and head dim must take."""
     import torch
@@ -1453,6 +1464,23 @@ def check_parallel_layer():
     return mesh
 
 
+def train_steps(cfg, mesh, tokens, steps: int) -> tuple[list, list, object, object]:
+    """``steps`` AdamW steps of the Llama ``cfg`` on ``mesh`` from a fresh
+    state (seed 0) on one fixed batch: losses, seconds, the state and the
+    step function."""
+    from tpu_cc_manager_torch.parallel.train import make_llama_train_state, make_llama_train_step
+
+    state, shardings = make_llama_train_state(cfg, mesh, seed=0)
+    step = make_llama_train_step(cfg, mesh, shardings)
+    losses, seconds = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        losses.append(float(loss))  # waits for the step
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, state, step
+
+
 def train_llama_1b(torch, peaks, mesh) -> dict:
     """The training slice's main path at Llama-3.2-1B full width on the
     mesh: 8 AdamW steps on one fixed batch with K2/K3/K4 in every layer,
@@ -1466,11 +1494,7 @@ def train_llama_1b(torch, peaks, mesh) -> dict:
 
     from tpu_cc_manager_torch import ops
     from tpu_cc_manager_torch.models.llama import LlamaConfig, LlamaModel
-    from tpu_cc_manager_torch.parallel.train import (
-        cross_entropy,
-        make_llama_train_state,
-        make_llama_train_step,
-    )
+    from tpu_cc_manager_torch.parallel.train import cross_entropy
 
     cfg = LlamaConfig.llama3_2_1b()  # f32 parameters, bf16 compute
     if not cfg.resolved_use_flash("cuda") or cfg.remat:
@@ -1480,21 +1504,8 @@ def train_llama_1b(torch, peaks, mesh) -> dict:
     ).to("cuda")
     torch.cuda.reset_peak_memory_stats()
 
-    def run(steps: int):
-        """``steps`` steps from a fresh state (seed 0): losses, seconds,
-        the state and the step function."""
-        state, shardings = make_llama_train_state(cfg, mesh, seed=0)
-        step = make_llama_train_step(cfg, mesh, shardings)
-        losses, seconds = [], []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            state, loss = step(state, tokens)
-            losses.append(float(loss))  # waits for the step
-            seconds.append(time.perf_counter() - t0)
-        return losses, seconds, state, step
-
     ops.reset_launch_counts()
-    losses, seconds, state, step = run(TRAIN_STEPS)
+    losses, seconds, state, step = train_steps(cfg, mesh, tokens, TRAIN_STEPS)
     launches = {**ops.launch_counts(), **flat_variants(ops.variant_launch_counts())}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile_step(torch, "train", lambda: float(step(state, tokens)[1]), LLAMA_KERNEL_GROUPS)
@@ -1505,7 +1516,7 @@ def train_llama_1b(torch, peaks, mesh) -> dict:
     # Determinism: no atomics anywhere on the path, so the first steps on a
     # fresh state repeat every printed digit.
     printed = [round(x, 6) for x in losses[:DETERMINISM_STEPS]]
-    again, _, state, step = run(DETERMINISM_STEPS)
+    again, _, state, step = train_steps(cfg, mesh, tokens, DETERMINISM_STEPS)
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -1566,6 +1577,42 @@ def train_llama_1b(torch, peaks, mesh) -> dict:
     if not rel < TRAIN_GRAD_LIMIT:
         fail(f"1B flash-path gradient differs from the einsum path by {rel:.4e}")
     return {"launches": launches, "losses": losses, "step_ms": ms, "grad_rel_err": rel}
+
+
+def train_at_depth(torch, mesh, layers: int) -> dict:
+    """Phase 7's 1B step at its width and ``layers`` of its layers, in this
+    process on phase 7's mesh, from seed 0 on phase 7's batch:
+    ``TRAIN_STEPS`` losses, strictly decreasing, with one ``sm90`` K2, K3
+    and K4 a layer a step. The reference of phases 12 and 20, which train
+    at that depth. Returns the losses and the launches."""
+    import gc
+
+    import numpy as np
+
+    from tpu_cc_manager_torch import ops
+    from tpu_cc_manager_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama3_2_1b(n_layers=layers)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    ).to("cuda")
+    ops.reset_launch_counts()
+    losses, _, state, step = train_steps(cfg, mesh, tokens, TRAIN_STEPS)
+    launches = {**ops.launch_counts(), **flat_variants(ops.variant_launch_counts())}
+    del state, step, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = layers * TRAIN_STEPS
+    want = {"K1": 0, "K2": n, "K3": n, "K4": n, "K1/sm90": 0, "K1/simt": 0,
+            "K2/sm90": n, "K2/simt": 0, "K3/sm90": n, "K3/simt": 0, "K4/sm90": n, "K4/simt": 0}
+    say(f"train Llama-3.2-1B at {layers} of its {LlamaConfig.llama3_2_1b().n_layers} layers "
+        f"(the reference of phases 12 and 20): losses {[round(x, 6) for x in losses]} "
+        f"launches={launches}")
+    if not all(np.isfinite(losses)) or any(b >= a for a, b in zip(losses, losses[1:])) \
+            or launches != want:
+        fail(f"the 1B step at {layers} layers: losses {losses} not finite and strictly "
+             f"decreasing, or launches {launches} not {want}")
+    return {"losses": losses, "launches": launches}
 
 
 def resnet_smoke(torch) -> None:
@@ -2000,13 +2047,15 @@ def check_tp(torch, k2_timed) -> dict:
     return paths
 
 
-def gloo_tp_rank(fault: bool) -> int:
+def gloo_tp_rank() -> int:
     """One of the processes of :func:`check_gloo_tp_step` (rank and world
     in torchrun's environment names): three Llama-3.2-1B train steps at
-    ``{tp: 2}`` on this card over a gloo group (NCCL refuses two ranks of
-    one communicator on one GPU; gloo stages the CUDA tensors through the
-    host), with ``GLOO_TP_FAULT`` planted if ``fault``. Prints one JSON
-    line."""
+    ``TRAIN_CUT_LAYERS`` layers at ``{tp: 2}`` on this card over a gloo group
+    (NCCL refuses two ranks of one communicator on one GPU; gloo stages the
+    CUDA tensors through the host), then three more from a fresh state with
+    ``GLOO_TP_FAULT`` planted. Prints one JSON line: both runs."""
+    import gc
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2014,72 +2063,78 @@ def gloo_tp_rank(fault: bool) -> int:
     from tpu_cc_manager_torch import ops
     from tpu_cc_manager_torch.models import llama
     from tpu_cc_manager_torch.parallel.mesh import MeshSpec, make_mesh
-    from tpu_cc_manager_torch.parallel.train import make_llama_train_state, make_llama_train_step
 
-    if fault:
-        llama.copy_to_tp = lambda x, tp: x
     torch.cuda.set_device(0)
     dist.init_process_group("gloo")
     mesh = make_mesh(MeshSpec(dp=1, tp=GLOO_TP), device_type="cuda")
-    cfg = llama.LlamaConfig.llama3_2_1b()
+    cfg = llama.LlamaConfig.llama3_2_1b(n_layers=TRAIN_CUT_LAYERS)
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
     ).to("cuda")
-    state, shardings = make_llama_train_state(cfg, mesh, seed=0)
-    step = make_llama_train_step(cfg, mesh, shardings)
-    ops.reset_launch_counts()
-    losses, seconds = [], []
-    for _ in range(GLOO_TP_STEPS):
-        t0 = time.perf_counter()
-        state, loss = step(state, tokens)
-        losses.append(float(loss))
-        seconds.append(time.perf_counter() - t0)
-    print(json.dumps({"rank": dist.get_rank(), "losses": losses, "seconds": seconds,
-                      "launches": {**ops.launch_counts(),
-                                   **flat_variants(ops.variant_launch_counts())},
-                      "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}),
-          flush=True)
+    runs = []
+    for fault in (False, True):
+        if fault:  # the model looks copy_to_tp up at each call
+            llama.copy_to_tp = lambda x, tp: x
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, seconds, state, step = train_steps(cfg, mesh, tokens, GLOO_TP_STEPS)
+        runs.append({"rank": dist.get_rank(), "losses": losses, "seconds": seconds,
+                     "launches": {**ops.launch_counts(),
+                                  **flat_variants(ops.variant_launch_counts())},
+                     "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps(runs), flush=True)
     dist.destroy_process_group()
     return 0
 
 
-def run_gloo_tp(fault: bool, one_rank_losses) -> tuple[list[dict], list[float]]:
-    """The ``GLOO_TP`` processes of one phase-12 run: each rank's JSON line
-    and the losses' relative gaps to the one-rank step's. Fails if a rank
-    fails or hangs."""
+def run_gloo_tp(one_rank_losses) -> list[tuple[list[dict], list[float]]]:
+    """The ``GLOO_TP`` processes of phase 12: for the sound run and then the
+    run with ``GLOO_TP_FAULT`` planted, each rank's result and the losses'
+    relative gaps to the one-rank step's. Fails if a rank fails or hangs."""
     from tpu_cc_manager_torch.utils.launch import run_ranks
 
-    cmd = [sys.executable, __file__, "--gloo-tp-child", GLOO_TP_FAULT if fault else "sound"]
+    cmd = [sys.executable, __file__, "--gloo-tp-child"]
     try:
-        # Both ranks' steps peak at about 25 GB each on the one card:
-        # expandable segments keep their caches from fragmenting past it.
+        # Both ranks' steps peak at 14.26 GB each on the one card at 4 layers
+        # (about 25 GB at full depth): expandable segments keep their caches
+        # from fragmenting past it.
         outs = run_ranks(cmd, GLOO_TP, GLOO_TP_TIMEOUT_S,
                          env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
     except (RuntimeError, TimeoutError) as e:
-        fail(f"gloo tp={GLOO_TP}{' with ' + GLOO_TP_FAULT if fault else ''}: {e}")
-    results = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+        fail(f"gloo tp={GLOO_TP}: {e}")
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out in outs]
     want = one_rank_losses[:GLOO_TP_STEPS]
-    return results, [abs(a - b) / abs(b) for a, b in zip(results[0]["losses"], want)]
+    runs = []
+    for i in range(2):
+        results = [r[i] for r in ranks]
+        runs.append((results, [abs(a - b) / abs(b)
+                               for a, b in zip(results[0]["losses"], want)]))
+    return runs
 
 
 def check_gloo_tp_step(torch, one_rank_losses) -> dict:
     """Phase 12: two processes on this one card train Llama-3.2-1B at
-    ``{tp: 2}`` over gloo; their losses must agree and match the one-rank
-    step's (phase 7) within ``GLOO_TP_LOSS_TOL``; the same run with
-    ``GLOO_TP_FAULT`` planted must not. Returns the launch counts of the
-    sound run's ranks together."""
+    ``TRAIN_CUT_LAYERS`` layers at ``{tp: 2}`` over gloo; their losses must
+    agree and match the one-rank step's at that depth (``one_rank_losses``,
+    :func:`train_at_depth`) within ``GLOO_TP_LOSS_TOL``; the same processes'
+    run from a fresh state with ``GLOO_TP_FAULT`` planted must not. Returns
+    the launch counts of the sound run's ranks together."""
     # The ranks share the card with this process: hand back its cache first.
     report_memory(torch, f"gloo tp={GLOO_TP}")
-    results, rels = run_gloo_tp(False, one_rank_losses)
+    (results, rels), (faulty, fault_rels) = run_gloo_tp(one_rank_losses)
     losses = results[0]["losses"]
     want = one_rank_losses[:GLOO_TP_STEPS]
-    n = 16 * GLOO_TP_STEPS  # one K2, K3 and K4 per layer and step
+    n = TRAIN_CUT_LAYERS * GLOO_TP_STEPS  # one K2, K3 and K4 per layer and step
     per_rank = {"K1": 0, "K2": n, "K3": n, "K4": n, "K1/sm90": 0, "K1/simt": 0, "K2/sm90": n,
                 "K2/simt": 0, "K3/sm90": n, "K3/simt": 0, "K4/sm90": n, "K4/simt": 0}
     same = all(r["losses"] == losses for r in results[1:])
     ok = same and max(rels) <= GLOO_TP_LOSS_TOL and all(r["launches"] == per_rank
                                                         for r in results)
-    say(f"gloo tp={GLOO_TP}, {GLOO_TP} processes on one card, Llama-3.2-1B train step: losses "
+    say(f"gloo tp={GLOO_TP}, {GLOO_TP} processes on one card, Llama-3.2-1B train step at "
+        f"{TRAIN_CUT_LAYERS} layers: losses "
         f"{[round(x, 6) for x in losses]} (other ranks {'identical' if same else 'DIFFERENT'}; "
         f"one-rank {[round(x, 6) for x in want]}, rel {[f'{x:.2e}' for x in rels]}, limit "
         f"{GLOO_TP_LOSS_TOL:g}); step seconds "
@@ -2090,7 +2145,6 @@ def check_gloo_tp_step(torch, one_rank_losses) -> dict:
         fail(f"the {GLOO_TP}-process tp={GLOO_TP} train step over gloo disagrees with the "
              f"one-rank step, or launched other than {per_rank} per rank")
 
-    faulty, fault_rels = run_gloo_tp(True, one_rank_losses)
     caught = max(fault_rels) > GLOO_TP_LOSS_TOL
     say(f"gloo tp={GLOO_TP} with {GLOO_TP_FAULT} planted: losses "
         f"{[round(x, 6) for x in faulty[0]['losses']]} rel {[f'{x:.2e}' for x in fault_rels]} "
@@ -3878,7 +3932,7 @@ def job_through_flip(workdir, device: str = "cuda", size: str = "llama3_2_1b",
                      batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
                      until: int = TRAIN_STEPS, hold_at: int = JOB_HOLD_AT,
                      reference: list[float] | None = None,
-                     agent_env: dict | None = None) -> dict:
+                     agent_env: dict | None = None, layers: int | None = None) -> dict:
     """Phase 20: a training job rides through a CC flip beside the agent
     (``ccmanager/localrig.py``). Against the mock apiserver: the job
     (``localrig job``) trains to ``hold_at`` and holds; the sidecar
@@ -3886,7 +3940,9 @@ def job_through_flip(workdir, device: str = "cuda", size: str = "llama3_2_1b",
     ``localrig request-checkpoint`` as its ``--on-drain`` command and a
     resumed job (``--resume``) as its ``--on-resume``; the agent CLI (the fake
     device layer, its matmul verify smoke, ``CC_DRAIN_ACK_TIMEOUT_S`` and
-    ``CC_TRACE_FILE`` set) flips the node to on. Without ``reference`` an
+    ``CC_TRACE_FILE`` set) flips the node to on. The jobs train ``size`` at
+    ``layers`` of its layers when given (``localrig job --layers``). Without
+    ``reference`` an
     uninterrupted job to ``until`` runs first and its losses are the
     reference. Returns the jobs' events, the agent's spans, phase seconds and
     log, and the walls."""
@@ -3907,7 +3963,7 @@ def job_through_flip(workdir, device: str = "cuda", size: str = "llama3_2_1b",
     workdir = pathlib.Path(workdir)
     shutil.rmtree(workdir, ignore_errors=True)
     job_args = ["--size", size, "--batch", str(batch), "--seq", str(seq), "--until", str(until),
-                "--device", device]
+                "--device", device, *(["--layers", str(layers)] if layers else [])]
     job_env = {"OMP_NUM_THREADS": "1"} if device == "cpu" else {}
     run = {"reference_run": reference is None}
     trace = workdir / "trace.jsonl"
@@ -4057,23 +4113,37 @@ def job_flip_problems(run: dict, hold_at: int, until: int, n_layers: int, smoke_
     return problems
 
 
-def run_bench(module: str, args: list[str], env: dict) -> tuple[dict, int, float]:
-    """``python -m tpu_cc_manager_torch.bench.<module> <args>`` from the
-    repository root: its one JSON line, exit code and wall seconds."""
+def run_tool(module: str, args: list[str], env: dict, cwd=None,
+             timeout: float = BENCH_TIMEOUT_S) -> tuple[subprocess.CompletedProcess, float]:
+    """``python -m tpu_cc_manager_torch.bench.<module> <args>`` (from the
+    repository root unless ``cwd``): the finished process and its wall
+    seconds. Fails on a timeout."""
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
             [sys.executable, "-m", f"tpu_cc_manager_torch.bench.{module}", *args],
-            capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, env=env,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
+            capture_output=True, text=True, timeout=timeout, env=env,
+            cwd=cwd or os.path.dirname(os.path.abspath(__file__)))
     except subprocess.TimeoutExpired:
-        fail(f"bench {module} {' '.join(args)} ran past {BENCH_TIMEOUT_S} s")
-    wall = time.perf_counter() - t0
+        fail(f"bench {module} {' '.join(args)} ran past {timeout} s")
+    return proc, time.perf_counter() - t0
+
+
+def run_bench(module: str, args: list[str], env: dict) -> tuple[dict, int, float]:
+    """:func:`run_tool` for a bench that prints one JSON line: that line,
+    the exit code and the wall seconds."""
+    proc, wall = run_tool(module, args, env)
     lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
     if len(lines) != 1:
         fail(f"bench {module} {' '.join(args)} printed {len(lines)} JSON lines, not one "
              f"(rc={proc.returncode}): {proc.stdout[-1500:]} {proc.stderr[-3000:]}")
     return json.loads(lines[0]), proc.returncode, wall
+
+
+def smoke_counts(res: dict) -> dict:
+    """A smoke result's launches, every kernel and variant."""
+    return {**dict.fromkeys(COUNT_KEYS, 0), **(res.get("kernel_launches") or {}),
+            **flat_variants(res.get("kernel_launches_by_variant") or {})}
 
 
 def bench_smokes(tag: str, smokes: list[dict], smoke_k1: int, problems: list) -> dict:
@@ -4082,8 +4152,7 @@ def bench_smokes(tag: str, smokes: list[dict], smoke_k1: int, problems: list) ->
     append what fails to ``problems``. Returns their launches, summed."""
     launches = dict.fromkeys(COUNT_KEYS, 0)
     for i, res in enumerate(smokes):
-        counts = {**dict.fromkeys(COUNT_KEYS, 0), **(res.get("kernel_launches") or {}),
-                  **flat_variants(res.get("kernel_launches_by_variant") or {})}
+        counts = smoke_counts(res)
         say(f"{tag} smoke {i}: backend={res.get('backend')} kernel={res.get('kernel')} "
             f"blocks={res.get('blocks')} size={res.get('size')} devices={res.get('devices')} "
             f"K1 sm90={counts['K1/sm90']} simt={counts['K1/simt']}")
@@ -4180,21 +4249,213 @@ def check_node_bench(torch, smi_line: str, smoke_k1: int) -> dict:
     return launches
 
 
-def check_job_through_flip(torch, smi_line: str, smoke_k1: int,
-                           reference: list[float]) -> dict:
-    """Phase 20 on the card (see ``job_through_flip``); ``reference`` is
-    phase 7's losses. Returns the launch counts of the jobs' steps and of
-    the verify smoke."""
+def tool_env(**names) -> dict:
+    """This environment with the tools' variables set to ``names``."""
+    return {**os.environ, **{k: str(v) for k, v in names.items()}}
+
+
+def libraries(directory) -> dict:
+    """The kernel libraries in ``directory`` and their mtimes."""
     import pathlib
 
-    from tpu_cc_manager_torch.models.llama import LlamaConfig
+    return {p.name: p.stat().st_mtime_ns for p in pathlib.Path(directory).glob("*.so")}
+
+
+def check_tile_sweep(smi_line: str, variant: str, smoke_k1: int, fastest: tuple, workdir,
+                     problems: list) -> dict:
+    """Phase 22 (a): ``tune_cuda`` over ``SWEEP_TILES`` (and phase 3's
+    ``fastest`` tile where they lack it) and ``SWEEP_REFUSED`` at
+    ``SWEEP_SIZE``, again with ``RESUME=1``, then ``apply_sweep`` on its
+    artifact, and ``apply_sweep --write`` on a copy of the package under
+    ``workdir``. Appends what fails to ``problems``; returns the rungs'
+    launches."""
+    import hashlib
+    import importlib.util
+    import shutil
+
+    from tpu_cc_manager_torch.bench.sweep import read_rows
+    from tpu_cc_manager_torch.ops import _build
+    from tpu_cc_manager_torch.ops.matmul import DEFAULT_BLOCKS
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out, errlog = workdir / "cuda_sweep.jsonl", workdir / "cuda_sweep.stderr.log"
+    tiles = [SWEEP_TILES[0], SWEEP_REFUSED, *SWEEP_TILES[1:]]
+    tiles += [fastest] if fastest not in tiles else []
+    configs = " ".join(",".join(map(str, t)) for t in tiles)
+    env = tool_env(OUT=out, ERRLOG=errlog, SIZE=SWEEP_SIZE, CONFIGS=configs, RESUME=0)
+    built = libraries(_build.build_dir())
+    proc, wall = run_tool("tune_cuda", [], env, timeout=TOOLS_TIMEOUT_S)
+    said, rc, rows = proc.stdout, proc.returncode, read_rows(str(out))
+    rebuilt = sorted(n for n, t in libraries(_build.build_dir()).items() if built.get(n) != t)
+    say(f"tile sweep ({smi_line}): tune_cuda at {SWEEP_SIZE} over {configs}: rc={rc}, "
+        f"{len(rows)} rows, the command {wall:.1f} s ({len(tiles)} smoke children; libraries "
+        f"built by them: {rebuilt or 'none, phase 2 built them'})")
+    for line in said.splitlines():
+        if line.startswith("  "):
+            say(f"tile sweep summary: {line.strip()}")
+    launches = dict.fromkeys(COUNT_KEYS, 0)
+    if rc != 0 or [r.get("rung") for r in rows] != [f"blocks={c}" for c in configs.split()]:
+        problems.append(f"tune_cuda: rc={rc}, rows tagged {[r.get('rung') for r in rows]}: "
+                        f"{proc.stderr[-1500:]}")
+    for tile, r in zip(tiles, rows):
+        if tile == SWEEP_REFUSED:
+            # Refused on one line before anything loads: no launch counts.
+            tag = "=== blocks=" + ",".join(map(str, tile)) + " ==="
+            stderr = errlog.read_text().split(tag)[1].split("\n=== ")[0].strip()
+            say(f"tile sweep rung {tile}: ok={r.get('ok')} error={r.get('error')}; its stderr "
+                f"{stderr[-500:]!r}")
+            if r.get("ok") is not False or "compiled for the tiles" not in str(r.get("error")) \
+                    or "left out" not in str(r.get("error")) or "kernel_launches" in r:
+                problems.append(f"the refused tile {tile} was not recorded as refused: {r} "
+                                f"{stderr[-1000:]}")
+            continue
+        counts = smoke_counts(r)
+        say(f"tile sweep rung {tile}: ok={r.get('ok')} timing_valid={r.get('timing_valid')} "
+            f"generation={r.get('generation')} blocks={r.get('blocks')} tflops={r.get('tflops')} "
+            f"mfu={r.get('mfu')} seconds_per_iter={r.get('seconds_per_iter')} K1 sm90="
+            f"{counts['K1/sm90']} simt={counts['K1/simt']} backend={r.get('backend')}")
+        if not (r.get("ok") and r.get("timing_valid") and r.get("generation") == variant
+                and r.get("blocks") == list(tile) and r.get("backend") == "cuda"
+                and counts["K1/sm90"] == counts["K1"] == smoke_k1):
+            problems.append(f"tile sweep rung {tile}: {json.dumps(r)[:1000]}")
+        launches = {k: launches[k] + counts[k] for k in COUNT_KEYS}
+
+    # RESUME=1: every rung recorded, none runs again.
+    before = out.read_bytes()
+    proc, wall = run_tool("tune_cuda", [], {**env, "RESUME": "1"}, timeout=TOOLS_TIMEOUT_S)
+    said, rc = proc.stdout, proc.returncode
+    skipped = [line for line in said.splitlines() if line.endswith("already recorded; skipping")]
+    after_resume = errlog.read_text().split("=== resume ")[-1].splitlines()[1:]
+    say(f"tile sweep with RESUME=1: rc={rc}, {len(skipped)} of {len(tiles)} rungs skipped, "
+        f"error log headers since the resume {after_resume}, the command {wall:.1f} s")
+    if rc != 0 or len(skipped) != len(tiles) or any(h.startswith("===") for h in after_resume) \
+            or out.read_bytes() != before:
+        problems.append(f"tune_cuda with RESUME=1 ran rungs again: {said[-2000:]}")
+
+    valid = [r for r in rows if r.get("ok") and r.get("timing_valid")]
+    best = max(valid, key=lambda r: r["tflops"]) if valid else {}
+    proc, _ = run_tool("apply_sweep", [str(out)], env, timeout=TOOLS_TIMEOUT_S)
+    said, rc = proc.stdout, proc.returncode
+    entry = f'    "{variant}": {tuple(best.get("blocks") or ())!r},'
+    say(f"apply_sweep: rc={rc} prints {said.strip().splitlines()[-1:]}; the fastest valid rung "
+        f"{best.get('blocks')} at {best.get('tflops')} TF/s; DEFAULT_BLOCKS[{variant!r}] = "
+        f"{DEFAULT_BLOCKS.get(variant)} (phase 3's device-time ranking over 9 rounds; one "
+        f"child's T(256) - T(64) rate is noisier)")
+    if rc != 0 or said.splitlines()[-1:] != [entry]:
+        problems.append(f"apply_sweep printed {said!r}, not {entry!r}")
+
+    # --write on a copy of the package: the repository's table stays as it is.
+    table = os.path.join(root, "tpu_cc_manager_torch", "ops", "matmul.py")
+    with open(table, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    tree = workdir / "tree"
+    shutil.copytree(os.path.join(root, "tpu_cc_manager_torch"), tree / "tpu_cc_manager_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    proc, _ = run_tool("apply_sweep", ["--write", str(out)], env, cwd=tree,
+                       timeout=TOOLS_TIMEOUT_S)
+    said, rc = proc.stdout, proc.returncode
+    # The copy's table, imported in this process under a name of its own.
+    copy = tree / "tpu_cc_manager_torch" / "ops" / "matmul.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_matmul_copy", copy)
+    written = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(written)
+    got = written.default_blocks(variant, SWEEP_SIZE)
+    with open(table, "rb") as f:
+        unchanged = hashlib.sha256(f.read()).hexdigest() == digest
+    say(f"apply_sweep --write on a copy: rc={rc} {said.strip().splitlines()[-1:]}; the copy's "
+        f"default_blocks({variant!r}, {SWEEP_SIZE}) = {got} ({copy}); the repository's "
+        f"ops/matmul.py unchanged: {unchanged}")
+    if rc != 0 or got != tuple(best.get("blocks") or ()) or not unchanged:
+        problems.append(f"apply_sweep --write: rc={rc} {said!r}; the copy gives {got}; "
+                        f"the repository's table unchanged: {unchanged}")
+    return launches
+
+
+def check_tools(torch, smi_line: str, smoke_k1: int, variant: str, llama_one_card: dict,
+                fastest: tuple) -> dict:
+    """Phase 22: the measurement tools on the card (see the module
+    docstring). Returns the launches of their smokes that report them."""
+    import pathlib
+    import shutil
+
+    from tpu_cc_manager_torch.bench.sweep import read_rows
+
+    t0 = time.perf_counter()
+    report_memory(torch, "before phase 22")
+    workdir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_tools"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    problems = []
+    launches = check_tile_sweep(smi_line, variant, smoke_k1, fastest, workdir, problems)
+    say(f"tools: (a) the tile sweep {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    out = workdir / "llama_ladder.jsonl"
+    batches = " ".join(map(str, LADDER_BATCHES))
+    env = tool_env(WORKLOAD="llama", SIZE=LADDER_SIZE, BATCHES=batches, OUT=out,
+                   ERRLOG=workdir / "llama_ladder.stderr.log", RESUME=0)
+    proc, wall = run_tool("batch_ladder", [], env, timeout=TOOLS_TIMEOUT_S)
+    said, rc, rows = proc.stdout, proc.returncode, read_rows(str(out))
+    for line in said.splitlines():
+        if line.startswith("  "):
+            say(f"batch ladder summary: {line.strip()}")
+    for b, r in zip(LADDER_BATCHES, rows):
+        counts = smoke_counts(r)
+        say(f"batch ladder {LADDER_SIZE} batch {b} ({smi_line}): ok={r.get('ok')} backend="
+            f"{r.get('backend')} tokens_per_sec={r.get('tokens_per_sec')} ms_per_token="
+            f"{r.get('ms_per_token')} hbm_bw_util={r.get('hbm_bw_util')} prefill_tokens_per_sec="
+            f"{r.get('prefill_tokens_per_sec')} K2 sm90={counts['K2/sm90']}")
+        if not (r.get("ok") and r.get("backend") == "cuda" and r.get("batch") == b
+                and r.get("rung") == f"batch={b}" and counts["K2/sm90"] == counts["K2"] > 0):
+            problems.append(f"batch ladder rung {b}: {json.dumps(r)[:1000]}")
+        launches = {k: launches[k] + counts[k] for k in COUNT_KEYS}
+    if rc != 0 or len(rows) != len(LADDER_BATCHES):
+        problems.append(f"batch_ladder: rc={rc}, {len(rows)} rows: {proc.stderr[-1500:]}")
+    say(f"tools: (b) the batch ladder {time.perf_counter() - t1:.1f} s (the command {wall:.1f})")
+
+    t1 = time.perf_counter()
+    report_memory(torch, "before the serving bench's calibration smoke")
+    res, rc, wall = run_bench("serve_bench", ["--calibrate-smoke", "--nodes", str(SERVE_NODES),
+                                              "--traffic-s", str(SERVE_TRAFFIC_S)],
+                              dict(os.environ))
+    cal = res.get("calibration") or {}
+    during, steady = res.get("latency_during_rollout") or {}, res.get("latency_steady_state") or {}
+    say(f"serving bench ({smi_line}): rc={rc} ok={res.get('ok')} nodes {SERVE_NODES} traffic "
+        f"{SERVE_TRAFFIC_S} s: rollout_ok={res.get('rollout_ok')} requests "
+        f"{res.get('requests_completed')} of {res.get('requests_issued')}, lost "
+        f"{res.get('requests_lost')}, nodes_bounced={res.get('nodes_bounced')}, p99 during the "
+        f"rollout {during.get('p99_ms')} ms ({during.get('count')} samples) against steady "
+        f"{steady.get('p99_ms')} ms ({steady.get('count')}); the command {wall:.1f} s")
+    say(f"serving bench calibration: {json.dumps(cal)} (the port's default Llama smoke, "
+        f"500m); phase 6's Llama-3-8B smoke: ms_per_token={llama_one_card.get('ms_per_token')} "
+        f"hbm_bw_util={llama_one_card.get('hbm_bw_util')} batch {llama_one_card.get('batch')}")
+    if not (rc == 0 and res.get("ok") and res.get("rollout_ok") and res.get("requests_lost") == 0
+            and res.get("nodes_bounced") == SERVE_NODES and (during.get("count") or 0) > 0
+            and (steady.get("count") or 0) > 0 and cal.get("backend") == "cuda"
+            and cal.get("ms_per_token")):
+        problems.append(f"serve_bench: rc={rc} {json.dumps(res)[:2000]}")
+    say(f"tools: (c) the serving bench {time.perf_counter() - t1:.1f} s")
+    if problems:
+        fail("phase 22, the measurement tools: " + "; ".join(problems))
+    shutil.rmtree(workdir, ignore_errors=True)
+    say(f"tools: phase wall {time.perf_counter() - t0:.1f} s (budget {TOOLS_BUDGET_S} s)")
+    return launches
+
+
+def check_job_through_flip(torch, smi_line: str, smoke_k1: int,
+                           reference: list[float]) -> dict:
+    """Phase 20 on the card (see ``job_through_flip``) at
+    ``TRAIN_CUT_LAYERS`` layers; ``reference`` is phase 7's losses at that
+    depth (:func:`train_at_depth`). Returns the launch counts of the jobs'
+    steps and of the verify smoke."""
+    import pathlib
 
     t0 = time.perf_counter()
     report_memory(torch, "job through a flip")
     cards = torch.cuda.device_count()
-    n_layers = LlamaConfig.llama3_2_1b().n_layers
+    n_layers = TRAIN_CUT_LAYERS
     workdir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_job"
-    run = job_through_flip(workdir, reference=reference,
+    run = job_through_flip(workdir, reference=reference, layers=n_layers,
                            agent_env={"GPU_CC_FAKE_NUM_GPUS": str(cards),
                                       "GPU_CC_FAKE_NUM_SWITCHES": "0"})
     events = run["events"]
@@ -4206,7 +4467,7 @@ def check_job_through_flip(torch, smi_line: str, smoke_k1: int,
     say(f"job: Llama-3.2-1B, {n_layers} layers, batch {TRAIN_BATCH}x{TRAIN_SEQ}, held at step "
         f"{JOB_HOLD_AT}; losses before the flip {[round(e['loss'], 6) for e in first]}, "
         f"after {[round(e['loss'], 6) for e in resumed]}; the uninterrupted run's "
-        f"({'this phase' if run['reference_run'] else 'phase 7'}) "
+        f"({'this phase' if run['reference_run'] else f'phase 7 at {n_layers} layers'}) "
         f"{[round(x, 6) for x in run['reference']]}")
     say(f"job: checkpoint {saved.get('bytes')} bytes, save {saved.get('save_s')} s, restore "
         f"{restored.get('restore_s')} s; handshake wait inside drain {handshake} s; "
@@ -4235,13 +4496,13 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--only-kernels", action="store_true",
                    help="stop after building and checking the kernels (phases 1-4)")
-    p.add_argument("--gloo-tp-child", choices=("sound", GLOO_TP_FAULT),
+    p.add_argument("--gloo-tp-child", action="store_true",
                    help="run as one process of phase 12 (the script starts these)")
     p.add_argument("--gloo-smoke-child", action="store_true",
                    help="run as one process of phase 13 (the script starts these)")
     args = p.parse_args(argv)
     if args.gloo_tp_child:
-        return gloo_tp_rank(args.gloo_tp_child == GLOO_TP_FAULT)
+        return gloo_tp_rank()
     if args.gloo_smoke_child:
         return gloo_smoke_rank()
 
@@ -4367,8 +4628,6 @@ def main(argv: list[str] | None = None) -> int:
                 fail("matmul smoke --kernel cuda did not launch K1, or not all on its sm90 kernel")
             if tiling_problem(res):
                 fail(f"matmul smoke --kernel cuda: {tiling_problem(res)}")
-    paths["matmul smoke --cuda-blocks"] = check_cuda_blocks_cli(
-        k1["sweep"]["4096x4096x4096"]["rows"][0]["blocks"], paths["matmul smoke"]["K1"])
 
     clock.lap("phase 5")
     # --- 6. Llama-3-8B inference smoke, full width ----------------------------
@@ -4434,6 +4693,8 @@ def main(argv: list[str] | None = None) -> int:
     mesh = check_parallel_layer()
     train = train_llama_1b(torch, peaks, mesh)
     paths["1b training"] = train["launches"]
+    cut = train_at_depth(torch, mesh, TRAIN_CUT_LAYERS)
+    paths[f"1b training, {TRAIN_CUT_LAYERS} layers"] = cut["launches"]
 
     clock.lap("phase 7")
     # --- 8. ResNet-50 smoke -----------------------------------------------------
@@ -4456,7 +4717,7 @@ def main(argv: list[str] | None = None) -> int:
     clock.lap("phase 11")
     # --- 12. the tp=2 train step, two processes on this card over gloo -------------
     paths[f"tp={GLOO_TP} train step, {GLOO_TP} processes"] = check_gloo_tp_step(
-        torch, train["losses"])
+        torch, cut["losses"])
 
     clock.lap("phase 12")
     # --- 13. the 8B smoke as one tp=2 group, two processes over gloo ---------------
@@ -4493,7 +4754,7 @@ def main(argv: list[str] | None = None) -> int:
     clock.lap("phase 19")
     # --- 20. a training job through a CC flip via the drain handshake ------------
     paths["job through a flip"] = check_job_through_flip(
-        torch, smi_line, paths["matmul smoke"]["K1"], train["losses"])
+        torch, smi_line, paths["matmul smoke"]["K1"], cut["losses"])
 
     clock.lap("phase 20")
     # --- 21. the node bench on the card ----------------------------------------
@@ -4501,7 +4762,13 @@ def main(argv: list[str] | None = None) -> int:
         torch, smi_line, paths["matmul smoke"]["K1"])
 
     clock.lap("phase 21")
-    # --- 22. kernel summary -----------------------------------------------------
+    # --- 22. the measurement tools on the card -----------------------------------
+    paths["tools: tile sweep and batch ladder"] = check_tools(
+        torch, smi_line, paths["matmul smoke"]["K1"], variant, llama_one_card,
+        tuple(k1["sweep"]["4096x4096x4096"]["rows"][0]["blocks"]))
+
+    clock.lap("phase 22")
+    # --- 23. kernel summary -----------------------------------------------------
     def counted(key: str) -> dict:
         by_path = {path: c[key] for path, c in paths.items() if c[key]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -4534,7 +4801,7 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel['name']} was launched no time on the paths driven")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
-    # --- 23. last line ------------------------------------------------------------
+    # --- 24. last line ------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

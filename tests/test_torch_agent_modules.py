@@ -7,9 +7,10 @@ byte for byte, the intent journal's file bytes (each package replays the
 other's file), and ``RestKube`` over HTTP against ``hack/mock_apiserver.py``.
 Every copied line of code equals the JAX file's but the manager's device
 seam (``ccmanager/node.py``), the serving harness's fake nodes, the lint's
-baseline file and env table, and the node bench's seams (its copies of the
-repository's ``bench.py``, ``bench_ab.py`` and ``hack/smoke_cache_bench.py``);
-a few lines of prose are reworded."""
+baseline file and env table, the node bench's seams (its copies of the
+repository's ``bench.py``, ``bench_ab.py`` and ``hack/smoke_cache_bench.py``)
+and the measurement tools' (``hack/apply_sweep.py``, ``hack/serve_bench.py``
+and ``hack/scale_bench.py``); a few lines of prose are reworded."""
 
 import ast
 import difflib
@@ -547,6 +548,81 @@ SEAM.update({
          '        return bench.preflight_failed("smoke_cache_cold_warm_s")']),
 })
 PROSE.update({'bench/bench.py': (87, 114), 'bench/bench_ab.py': (12, 25), 'bench/smoke_cache_bench.py': (12, 14)})
+# The measurement tools' copies: the port's K1 table three directories
+# up, and texts that name the card (apply_sweep); the repository root,
+# and a calibration smoke that fails failing the bench (serve_bench); the
+# repository root, the mock apiserver from its hack/, and torch_-prefixed
+# default artifacts (scale_bench). Each seam line is commented, and each
+# copy's docstring says what it changes; the prose also drops the numbers
+# of the issues that asked for a feature.
+SEAM.update({
+    'bench/apply_sweep.py': (
+        ['MATMUL_PY = Path(__file__).resolve().parent.parent / (',
+         '    parser.add_argument("sweep", help="pallas sweep JSONL artifact")',
+         '        print("sweep did not run on a TPU generation; not retuning the table")'],
+        ['MATMUL_PY = Path(__file__).resolve().parent.parent.parent / (',
+         '    parser.add_argument("sweep", help="cuda sweep JSONL artifact")',
+         '        print("sweep did not run on a card variant; not retuning the table")']),
+    'bench/serve_bench.py': (
+        ['    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))',
+         '                        "the knee (the ISSUE bar: 80%%)")',
+         '        from tpu_cc_manager.smoke.runner import run_workload_subprocess',
+         '        smoke = run_workload_subprocess(',
+         '            "llama", timeout_s=600.0, cwd=repo_root,',
+         '        )'],
+        ['    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))',
+         '                        "the knee (the acceptance bar: 80%%)")',
+         '        from tpu_cc_manager.smoke.runner import SmokeError, run_workload_subprocess',
+         '        try:',
+         '            smoke = run_workload_subprocess(',
+         '                "llama", timeout_s=600.0, cwd=repo_root,',
+         '            )',
+         '        except SmokeError as e:',
+         '            smoke = {"ok": False, "error": str(e)}',
+         '        if not smoke.get("ok") or not smoke.get("ms_per_token"):',
+         '            result = {',
+         '                "metric": "serve_bench_calibration",',
+         '                "ok": False,',
+         '                "error": "calibration smoke failed: "',
+         '                + str(smoke.get("error") or "no ms_per_token in its result"),',
+         '                "calibration": calibration,',
+         '            }',
+         '            line = json.dumps(result)',
+         '            print(line)',
+         '            if args.out:',
+         '                with open(args.out, "w", encoding="utf-8") as f:',
+         '                    f.write(line + "\\n")',
+         '            return 1']),
+    'bench/scale_bench.py': (
+        ['sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))',
+         '    sys.path.insert(',
+         '        0, os.path.join(os.path.dirname(os.path.abspath(__file__)))',
+         '    )',
+         '    path = os.path.join(',
+         '        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),',
+         '        "SCALE_r02.json",',
+         '    )',
+         '        "wire); defaults to the 1k-node fleet and SCALE_r02.json",',
+         '        "flight files (obs/fleet.py); defaults to FLEET_r01.json",',
+         '        "nodes, 10 regions, SCALE_r03.json",',
+         '        "regions, SCALE_r04.json",',
+         '        out = args.out or "FLEET_r01.json"',
+         '        out = args.out or ("SCALE_r04.json" if blackout else "SCALE_r03.json")',
+         '        args.out = "SCALE_r02.json" if args.apiserver else "SCALE_r01.json"'],
+        ['_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))',
+         'sys.path.insert(0, _REPO_ROOT)',
+         '    sys.path.insert(0, os.path.join(_REPO_ROOT, "hack"))',
+         '    path = os.path.join(_REPO_ROOT, "SCALE_r02.json")',
+         '        "wire); defaults to the 1k-node fleet and torch_SCALE_r02.json",',
+         '        "flight files (obs/fleet.py); defaults to torch_FLEET_r01.json",',
+         '        "nodes, 10 regions, torch_SCALE_r03.json",',
+         '        "regions, torch_SCALE_r04.json",',
+         '        out = args.out or "torch_FLEET_r01.json"',
+         '        out = args.out or ("torch_SCALE_r04.json" if blackout else "torch_SCALE_r03.json")',
+         '        args.out = "torch_SCALE_r02.json" if args.apiserver else "torch_SCALE_r01.json"']),
+})
+PROSE.update({'bench/apply_sweep.py': (11, 22), 'bench/serve_bench.py': (1, 15),
+              'bench/scale_bench.py': (9, 30)})
 COPIES = ["ccmanager/watchdog.py", "ccmanager/remediation.py", "ccmanager/slicecoord.py",
           "ccmanager/multislice.py", "ccmanager/intent_journal.py", "ccmanager/informer.py",
           "ccmanager/metrics_server.py", "version.py", "labels.py", "utils/locks.py",
@@ -568,7 +644,10 @@ COPIES = ["ccmanager/watchdog.py", "ccmanager/remediation.py", "ccmanager/slicec
 # file that its copy leaves out: an H100 node is a one-host slice, so the
 # bench has no multihost scenario.
 JAX_FILES = {"bench/bench.py": "bench.py", "bench/bench_ab.py": "bench_ab.py",
-             "bench/smoke_cache_bench.py": "hack/smoke_cache_bench.py"}
+             "bench/smoke_cache_bench.py": "hack/smoke_cache_bench.py",
+             "bench/apply_sweep.py": "hack/apply_sweep.py",
+             "bench/serve_bench.py": "hack/serve_bench.py",
+             "bench/scale_bench.py": "hack/scale_bench.py"}
 LEFT_OUT = {"bench/bench.py": ("run_multihost_scenario",)}
 
 

@@ -126,19 +126,20 @@ def test_drain_blocks_until_job_checkpoints_then_resumes_exactly(tmp_path):
 
 
 def test_chip_smoke_phase_20_on_the_cpu(tmp_path):
-    """``chip_smoke.job_through_flip`` and its checks at the tiny size: an
-    uninterrupted job gives the reference; the job holds at step 2, the
+    """``chip_smoke.job_through_flip`` and its checks at the tiny size, cut
+    to one of its two layers (``localrig job --layers``): an uninterrupted
+    job gives the reference; the job holds at step 2, the
     sidecar's request makes it save and exit, the agent flips the node to on
     (its matmul smoke on the CPU), the resumed job restores step 2 and
     trains to step 5 with the reference's losses. No problem is found."""
     import chip_smoke
 
+    n_layers = LlamaConfig.tiny().n_layers - 1  # cut, as the card's phase 20 cuts the 1B
     run = chip_smoke.job_through_flip(
         tmp_path / "job", device="cpu", size=TINY["size"], batch=TINY["batch"],
-        seq=TINY["seq"], until=TINY["until"], hold_at=TINY["hold_at"],
+        seq=TINY["seq"], until=TINY["until"], hold_at=TINY["hold_at"], layers=n_layers,
         agent_env={"CC_SMOKE_DEVICE": "cpu", "OMP_NUM_THREADS": "1",
                    "GPU_CC_FAKE_NUM_GPUS": "1", "GPU_CC_FAKE_NUM_SWITCHES": "0"})
-    n_layers = LlamaConfig.tiny().n_layers
     assert chip_smoke.job_flip_problems(run, TINY["hold_at"], TINY["until"], n_layers,
                                         smoke_k1=0, cards=1, device="cpu") == []
     first, resumed = chip_smoke.job_steps(run)

@@ -312,8 +312,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     nvcc: nothing is built or loaded at import. The agent's, the fleet
     rollout's and the operator's modules (``ccmanager``, ``serve``,
     ``faults``, ``ctl``, ``obs/fleet``, ``lint``, the deployment's readers
-    ``deploy``, the node bench ``bench`` and what they import) import no
-    torch, and importing
+    ``deploy``, the node bench ``bench``, the measurement tools (``sweep``,
+    ``tune_cuda``, ``batch_ladder``, ``apply_sweep``, ``serve_bench``,
+    ``scale_bench``) and what they import) import no torch, and importing
     ``__main__`` does not start the agent. The kernels' build command
     (``ops/_build.py``) is one of the modules."""
     code = """
@@ -325,7 +326,10 @@ import tpu_cc_manager_torch.ctl, tpu_cc_manager_torch.ccmanager.federation
 import tpu_cc_manager_torch.obs.fleet, tpu_cc_manager_torch.lint.__main__
 import tpu_cc_manager_torch.deploy
 import tpu_cc_manager_torch.bench.bench, tpu_cc_manager_torch.bench.bench_ab
-import tpu_cc_manager_torch.bench.smoke_cache_bench
+import tpu_cc_manager_torch.bench.smoke_cache_bench, tpu_cc_manager_torch.bench.sweep
+import tpu_cc_manager_torch.bench.tune_cuda, tpu_cc_manager_torch.bench.batch_ladder
+import tpu_cc_manager_torch.bench.apply_sweep, tpu_cc_manager_torch.bench.serve_bench
+import tpu_cc_manager_torch.bench.scale_bench
 assert not [m for m in sys.modules if m == "torch" or m.startswith("torch.")]
 import tpu_cc_manager_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_cc_manager_torch.__path__, "tpu_cc_manager_torch.")]

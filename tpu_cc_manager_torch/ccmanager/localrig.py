@@ -305,9 +305,10 @@ def _tree_bytes(path: pathlib.Path) -> int:
 
 def run_job(job_dir: str, size: str = "llama3_2_1b", batch: int = 4, seq: int = 1024,
             until: int = 8, hold_at: int = 0, device: str = "cuda",
-            resume: bool = False) -> int:
-    """Train the Llama ``size`` (``LlamaConfig.<size>()``, weights from seed
-    0) with AdamW on one fixed batch of ``batch`` x ``seq`` + 1 tokens
+            resume: bool = False, layers: int | None = None) -> int:
+    """Train the Llama ``size`` (``LlamaConfig.<size>()``, at ``layers`` of
+    its layers when given, weights from seed 0) with AdamW on one fixed
+    batch of ``batch`` x ``seq`` + 1 tokens
     (numpy's generator from seed 0, as ``chip_smoke.py``'s training phase
     draws it) on a one-rank mesh, up to step ``until``. With ``resume`` the
     newest checkpoint is restored first. Between steps the job looks for
@@ -334,7 +335,7 @@ def run_job(job_dir: str, size: str = "llama3_2_1b", batch: int = 4, seq: int = 
     directory.mkdir(parents=True, exist_ok=True)
     (directory / JOB_PID).write_text(str(os.getpid()))
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = getattr(LlamaConfig, size)()
+    cfg = getattr(LlamaConfig, size)(**({"n_layers": layers} if layers else {}))
     mesh = make_mesh(MeshSpec(), device_type=device)
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, seq + 1))).to(device)
@@ -428,6 +429,8 @@ def main(argv: list[str] | None = None) -> int:
     job = sub.add_parser("job", help="train, checkpoint on request (run_job)")
     job.add_argument("--dir", required=True)
     job.add_argument("--size", default="llama3_2_1b", help="a LlamaConfig constructor")
+    job.add_argument("--layers", type=int, default=None,
+                     help="the model's depth (default: the size's own)")
     job.add_argument("--batch", type=int, default=4)
     job.add_argument("--seq", type=int, default=1024)
     job.add_argument("--until", type=int, default=8, help="the last step")
@@ -441,7 +444,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "request-checkpoint":
         return request_checkpoint(args.dir)
     return run_job(args.dir, size=args.size, batch=args.batch, seq=args.seq, until=args.until,
-                   hold_at=args.hold_at, device=args.device, resume=args.resume)
+                   hold_at=args.hold_at, device=args.device, resume=args.resume,
+                   layers=args.layers)
 
 
 if __name__ == "__main__":

@@ -88,6 +88,16 @@ def main(argv: list[str] | None = None) -> int:
         # one-JSON-line failure; other defects keep their tracebacks.
         print(json.dumps({"ok": False, "workload": args.workload, "error": str(e)}))
         return 1
+    except RuntimeError as e:
+        # Running out of device memory is a result (a batch ladder's
+        # ceiling): one failure line, as for a workload failure.
+        import torch
+
+        if not isinstance(e, torch.OutOfMemoryError):
+            raise
+        print(json.dumps({"ok": False, "workload": args.workload,
+                          "error": f"out of device memory: {e}"}))
+        return 1
     print(json.dumps(result))
     return 0
 
