@@ -65,12 +65,14 @@ counts at 0 just before it and read just after:
    ``torch.profiler``, and the simt K3 and K4 at the 1B training shape and
    at S = 2048, D = 128 in f32; at each timed shape two K4 launches must
    give the same bits;
-5. the matmul smoke through the agent's runner with ``--kernel torch`` and
-   ``--kernel cuda`` (the latter must show K1 launches, all on "sm90", at
-   the default tiling); each must report ``devices`` =
-   ``torch.cuda.device_count()`` and each card's oracles (``--cuda-blocks``
-   runs in phase 22's tile sweep, at phase 3's fastest tile among others
-   and at a tile left out);
+5. the matmul smoke through the agent's runner with ``--kernel torch``, and
+   with ``--kernel cuda`` (the smoke's default kernel) as phase 16 (b)'s
+   two-host flip runs it for host 0's verify smoke, the same command,
+   whose result is held to this phase's checks after phase 16: the latter
+   must show K1 launches, all on "sm90", at the default tiling; each must
+   report ``devices`` = ``torch.cuda.device_count()`` and each card's
+   oracles (``--cuda-blocks`` runs in phase 22's tile sweep, at phase 3's
+   fastest tile among others and at a tile left out);
 6. the Llama-3-8B inference smoke at full width (32 layers, dim 4096, GQA
    32/8, vocab 128256, bf16, batch 4): all three oracles and K2 launches on
    every visible card (``devices`` and each card's oracles printed) and a
@@ -210,7 +212,17 @@ counts at 0 just before it and read just after:
    agent's ``/metrics`` (printed), exactly one verify smoke logged, ok on
    every card (K1 at the default tiling; the 500m Llama's K2 all on
    ``sm90`` and a prefill rate as phase 6's; the ResNet-50's valid timing
-   and falling loss), and SIGTERM must exit 0;
+   and falling loss), and SIGTERM must exit 0. Then ``hack/demo_multihost.sh``
+   on the port (``cli_slice_flip``): two agents as hosts 0 and 1 of one
+   slice on the fake device layer, on a rig of two nodes, host 0 with
+   ``--smoke-workload matmul`` and host 1 with ``none``; ``slice`` on host 0
+   alone must leave it staged at the slice commit barrier and not
+   committed for the demo's 6 s; once host 1 is labelled too, both nodes
+   must read ``slice`` and host 0 ``ready.state=true`` within the 90 s
+   budget from host 1's label (printed beside the ``nvidia-smi`` line),
+   with host 0's phase seconds, its ``barrier`` among them (its hold),
+   printed; host 0 must log one verify smoke that passes the matmul flip's
+   checks, host 1 none, and both agents must exit 0 on SIGTERM;
 17. a rolling CC flip of a pool on the card (``rolling_pool``): two fake HGX
    H100 nodes (8 GPUs and 4 NVSwitches each, ``FakeGpuBackend`` behind
    ``NodeBackend``, the operator's pods from ``drain/sim.py``), each a port
@@ -309,7 +321,9 @@ counts at 0 just before it and read just after:
    and whether the two smoke windows overlapped is printed; (c)
    ``bench_ab --workloads matmul --reps 1 --cycles 1``: both arms on the
    card (both CC off: the fake device layer), the loss printed (one rep an
-   arm leaves no 95% half-width);
+   arm leaves no 95% half-width); (a)'s ``multihost_slice``, two fake hosts
+   of one slice through the slice commit barrier, printed (its seconds and
+   each host's barrier wait) and ok;
 22. the measurement tools on the card (``tpu_cc_manager_torch/bench/``, the
    port of the repository's ``hack/`` tools), each a process: (a) the tile
    sweep ``tune_cuda`` at 4096 over ``SWEEP_TILES`` (and phase 3's fastest
@@ -538,6 +552,12 @@ AGENT_PHASES = ("drain", "stage", "reset", "wait_ready", "attest", "smoke", "rea
 # and the ResNet-50, whose smoke takes the place of the child phase 8 ran
 # and is phase 23's ResNet rung (the same command).
 CLI_SMOKES = ("matmul", "llama", "resnet")
+# Phase 16 (b)'s two-host flip: each host's verify smoke. Host 0's matmul
+# smoke is phase 5's ``--kernel cuda`` child (the same command), so one
+# smoke child pays for the flip; host 1 runs none, so two smokes never
+# share the card.
+SLICE_SMOKES = ("matmul", "none")
+SLICE_PHASES = AGENT_PHASES + ("barrier",)
 
 # Phase 17, a rolling CC flip of a pool on the card: two fake HGX H100
 # nodes, flipped to on one node at a time by the port's orchestrator. The
@@ -639,6 +659,29 @@ COUNT_KEYS = ("K1", "K2", "K3", "K4", "K1/sm90", "K1/simt", "K2/sm90", "K2/simt"
               "K3/simt", "K4/sm90", "K4/simt")
 
 
+def check_matmul_smoke(torch, kernel: str, res: dict, ran: str = "") -> dict:
+    """Phase 5's checks of a matmul smoke's result with ``--kernel
+    kernel`` (``ran``: which run gave it, when not phase 5's own child):
+    on the card, every card verified, and with ``cuda`` K1 launched, all
+    on ``sm90``, at the default tiling. Returns its launches."""
+    launches = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
+    say(f"matmul smoke kernel={kernel}{f' ({ran})' if ran else ''}: ok={res['ok']} "
+        f"size={res['size']} blocks={res['blocks']} tflops={res['tflops']} mfu={res['mfu']} "
+        f"ident_err={res['ident_err']} rowsum_rel_err={res['rowsum_rel_err']:.3e} "
+        f"launches={launches} devices={res['devices']} (visible {res['visible_devices']}) "
+        f"per_device={json.dumps(res['per_device'])}")
+    if res["backend"] != "cuda":
+        fail(f"matmul smoke ran on {res['backend']}, not the card")
+    # Either kernel verifies every card.
+    check_devices(f"matmul smoke --kernel {kernel}", res, torch.cuda.device_count())
+    if kernel == "cuda":
+        if launches["K1"] <= 0 or launches["K1/sm90"] != launches["K1"]:
+            fail("matmul smoke --kernel cuda did not launch K1, or not all on its sm90 kernel")
+        if tiling_problem(res):
+            fail(f"matmul smoke --kernel cuda: {tiling_problem(res)}")
+    return launches
+
+
 def cut_smoke_size() -> str:
     """Register Llama-3-8B at ``SMOKE_CUT_LAYERS`` layers as a size of the
     Llama smoke in this process; returns its name."""
@@ -653,13 +696,28 @@ def cut_smoke_size() -> str:
 def fail(message: str) -> None:
     """Print the failure on both streams (a caller that keeps only one of
     them still sees why) and exit 1."""
-    print(f"FAIL: {message}", flush=True)
-    print(f"FAIL: {message}", file=sys.stderr, flush=True)
+    for stream in (sys.stdout, sys.stderr):
+        stream.write(f"FAIL: {message}\n")
+        stream.flush()
     sys.exit(1)
 
 
 def say(message: str) -> None:
-    print(message, flush=True)
+    # One write a line: phases run side by side print from their threads.
+    sys.stdout.write(message + "\n")
+    sys.stdout.flush()
+
+
+def side_by_side(*calls):
+    """Run each call on a thread of its own and return their results in
+    order: for phases that wait on processes of their own and time nothing
+    that another's load would skew. A call that fails fails the script once
+    every call has ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(calls)) as pool:
+        futures = [pool.submit(call) for call in calls]
+    return [future.result() for future in futures]
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2875,8 +2933,11 @@ def check_agent(torch, smi_line: str) -> tuple[dict, dict]:
     matmul smoke on the card. (b) ``python -m tpu_cc_manager_torch`` as a
     process against ``hack/mock_apiserver.py``, once with each smoke of
     ``CLI_SMOKES`` (``cli_flip``): one flip to on, timed from the desired
-    label to the ready label, then SIGTERM. Returns the verify smokes'
-    launch counts and each CLI flip's smoke result by its workload."""
+    label to the ready label, then SIGTERM; then two agents as the two hosts
+    of one slice (``cli_slice_flip``). Returns the verify smokes' launch
+    counts, less the two-host flip's, and each CLI flip's smoke result by
+    its workload, the two-host flip's host 0 smoke as ``slice``: phase 5's
+    ``--kernel cuda`` child, whose launches count there."""
     import pathlib
     import shutil
 
@@ -2949,8 +3010,68 @@ def check_agent(torch, smi_line: str) -> tuple[dict, dict]:
     for flip in cli.values():
         counts = smoke_counts(flip["smoke"])
         launches = {k: launches.get(k, 0) + counts[k] for k in COUNT_KEYS}
+    smokes = {workload: flip["smoke"] for workload, flip in cli.items()}
+    smokes["slice"] = cli_slice_flip(directory, env, smi_line)["smoke"]
     shutil.rmtree(directory, ignore_errors=True)
-    return launches, {workload: flip["smoke"] for workload, flip in cli.items()}
+    return launches, smokes
+
+
+def cli_slice_flip(directory, env: dict, smi_line: str) -> dict:
+    """Phase 16 (b), the two-host flip: ``hack/demo_multihost.sh`` on the
+    port. Two agents CLI, hosts 0 and 1 of one slice on the fake device
+    layer (``localrig.start_slice_agents``), on a rig of two nodes, with
+    the verify smokes of ``SLICE_SMOKES``; ``slice`` on host 0 alone, held
+    at the slice commit barrier, then on host 1 (``localrig.flip_slice``):
+    host 0 must stay staged and uncommitted while alone, both nodes must
+    read ``slice`` and host 0 ready within the budget from host 1's label,
+    host 0 must record every phase of ``SLICE_PHASES`` and log one verify
+    smoke that passes ``cli_smoke_problems``, host 1 none, and SIGTERM must
+    exit 0 on both. Returns the flip's numbers and host 0's smoke."""
+    import signal
+
+    from tpu_cc_manager_torch.ccmanager import localrig
+    from tpu_cc_manager_torch.labels import MODE_SLICE
+
+    name = f"agent CLI two-host slice (--smoke-workload {' / '.join(SLICE_SMOKES)})"
+    with localrig.LocalRig(str(directory / "slice-rig"), nodes=len(SLICE_SMOKES)) as rig:
+        try:
+            agents = localrig.start_slice_agents(rig, list(SLICE_SMOKES), env=env)
+        except RuntimeError as e:
+            fail(f"{name}: {e}")
+        flip = localrig.flip_slice(rig, agents, timeout_s=AGENT_FLIP_TIMEOUT_S)
+        phases, _ = localrig.await_phases(agents[0].metrics_port, MODE_SLICE, SLICE_PHASES,
+                                          30)
+        smokes = [smoke_results_in(rig.log_of(a)) for a in agents]
+        say(f"{name}: host 0 alone for {localrig.HOLD_S:g} s: {json.dumps(flip['alone'])}; "
+            f"held at the barrier {phases.get('barrier')} s; drain->ready "
+            f"{flip['flip_s']:.3f} s from host 1's label to both at slice and host 0 ready "
+            f"(budget {AGENT_BUDGET_S:g} s; {smi_line}); host 0 tpu_cc_phase_seconds "
+            f"{json.dumps(phases)}")
+        t0 = time.perf_counter()
+        for agent in agents:
+            agent.send_signal(signal.SIGTERM)
+        rcs = []
+        for agent in agents:
+            try:
+                rcs.append(agent.wait(timeout=30))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        say(f"{name}: SIGTERM -> exits {rcs} in {time.perf_counter() - t0:.3f} s")
+        problems = list(flip["problems"])
+        problems += [f"host 0: {p}" for p in cli_smoke_problems(SLICE_SMOKES[0], smokes[0])]
+        if smokes[1]:
+            problems.append(f"host 1 logged {len(smokes[1])} verify smokes, want none")
+        if flip["flip_s"] >= AGENT_BUDGET_S:
+            problems.append(f"drain->ready {flip['flip_s']:.3f} s is not under the "
+                            f"{AGENT_BUDGET_S:g} s budget")
+        if not set(SLICE_PHASES) <= set(phases):
+            problems.append(f"host 0's phases {sorted(phases)} miss one of the flip's")
+        if rcs != [0, 0]:
+            problems.append(f"SIGTERM gave exits {rcs}")
+        if problems:
+            fail(f"{name}: {'; '.join(problems)}: "
+                 + " | ".join(rig.log_of(a)[-2000:] for a in agents))
+    return {"flip_s": flip["flip_s"], "phase_s": phases, "smoke": smokes[0][0]}
 
 
 def cli_flip(rig, workload: str, directory, env: dict, smi_line: str) -> dict:
@@ -4014,27 +4135,42 @@ def h100_span_problems(h100: dict, standin_report: bool) -> list[str]:
     return problems
 
 
-def check_daemonset_agent(torch, smi_line: str, smoke_k1: int) -> dict:
-    """Phase 19: the agent as its DaemonSet starts it (see the module
-    docstring). Returns the verify smoke's launch counts."""
+def start_image_build():
+    """Phase 19 (a), the image's build step (:func:`prebuild_image` into a
+    fresh ``build/chip_smoke_image``), started on a thread of its own beside
+    phase 2's build, both nvcc on the host: (the image directory, a future
+    of the step's result), which phase 19 takes."""
     import pathlib
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     from tpu_cc_manager_torch import deploy
 
-    t0 = time.perf_counter()
     image = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_image"
     if image.exists():
         make_writable(image)
         shutil.rmtree(image)
-    dockerfile = deploy.DOCKERFILE.read_text()
+    pool = ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(prebuild_image, image, deploy.DOCKERFILE.read_text())
+    pool.shutdown(wait=False)
+    return image, future
 
-    # --- (a) the image's build step ---
-    built = prebuild_image(image, dockerfile)
+
+def check_daemonset_agent(torch, smi_line: str, smoke_k1: int, image_build) -> dict:
+    """Phase 19: the agent as its DaemonSet starts it (see the module
+    docstring), its image built by ``image_build``
+    (:func:`start_image_build`). Returns the verify smoke's launch counts."""
+    import shutil
+
+    t0 = time.perf_counter()
+    image, pending = image_build
+
+    # --- (a) the image's build step, run beside phase 2's build ---
+    built = pending.result()
     say(f"daemonset: image build step {' '.join(built['command'][1:])}: nvcc "
         f"{json.dumps({k: round(v, 3) for k, v in built['seconds'].items()})} s, wall "
-        f"{built['wall_s']:.3f} s; {built['libraries']} in {built['prebuilt']}, made "
-        f"read-only (0555)")
+        f"{built['wall_s']:.3f} s (beside phase 2's build); {built['libraries']} in "
+        f"{built['prebuilt']}, made read-only (0555)")
     if len(built["libraries"]) != len(built["seconds"]) or not built["libraries"]:
         fail(f"daemonset: the build step built {built['seconds']} but left "
              f"{built['libraries']}")
@@ -4348,19 +4484,19 @@ def evidence_path(evidence_dir, name: str, key: str | None = None) -> str:
 def check_node_bench(torch, smi_line: str, smoke_k1: int, evidence_dir) -> dict:
     """Phase 21: the node bench on the card (``tpu_cc_manager_torch/bench``,
     the port of the repository's ``bench.py``, ``bench_ab.py`` and
-    ``hack/smoke_cache_bench.py``), each a process from the repository root.
+    ``hack/smoke_cache_bench.py``), each a process from the repository root,
+    (a) and (b) side by side; (c) is :func:`check_node_ab`.
     (a) ``bench`` with ``CC_BENCH_REALISTIC_RUNS`` = ``BENCH_REALISTIC_RUNS``:
     ok, under the 90 s target, ``smoke_backend`` cuda, the cold smoke's
     fresh build directory holding at least one library and the warm one
     having built none; (b) ``bench --spare``: ok, the spare's effective flip
-    under its pool-mate's full path; (c) ``bench_ab --workloads matmul``
-    at ``AB_REPS`` x ``AB_CYCLES``: both arms measured on the card. Every
-    verify smoke of the three must report phase 5's K1 count, all ``sm90``,
-    at the default tiling. (a)'s cold-vs-warm result, (b)'s summary and
-    (c)'s line are written where phase 23's evidence ladder under
+    under its pool-mate's full path. Every verify smoke of the two must
+    report phase 5's K1 count, all ``sm90``, at the default tiling. (a)'s
+    ``multihost_slice`` (two fake hosts of one slice through the slice
+    commit barrier) is printed and must be ok. (a)'s cold-vs-warm result and
+    (b)'s summary are written where phase 23's evidence ladder under
     ``evidence_dir`` keeps them, as its stages would write them: (a)'s with
-    the cache bench's ``metric``, (c)'s only when ``ok`` (``capture_to``).
-    Returns the smokes' launches, summed."""
+    the cache bench's ``metric``. Returns the smokes' launches, summed."""
     report_memory(torch, "before phase 21")
     env = {**os.environ, "CC_BENCH_REALISTIC_RUNS": str(BENCH_REALISTIC_RUNS)}
     problems = []
@@ -4369,7 +4505,12 @@ def check_node_bench(torch, smi_line: str, smoke_k1: int, evidence_dir) -> dict:
     def add(counts: dict) -> None:
         launches.update({k: launches[k] + counts[k] for k in COUNT_KEYS})
 
-    res, rc, wall = run_bench("bench", [], env)
+    # (a) and (b) run side by side: their verdicts hold walls against
+    # targets they keep by far, and their smokes' rates are printed only.
+    (res, rc, wall), (spare, spare_rc, spare_wall) = side_by_side(
+        lambda: run_bench("bench", [], env),
+        lambda: run_bench("bench", ["--spare", "--out",
+                                    evidence_path(evidence_dir, "bench --spare")], env))
     cache = res.get("smoke_cache") or {}
     say(f"node bench (a) {smi_line}: rc={rc} ok={res.get('ok')} drain->ready "
         f"{res.get('value')} s (target 90 s, under_target={res.get('under_target')}) "
@@ -4382,6 +4523,12 @@ def check_node_bench(torch, smi_line: str, smoke_k1: int, evidence_dir) -> dict:
         f"{json.dumps(res.get('smoke_warmup'))} control {json.dumps(res.get('control'))} "
         f"handshake {json.dumps(res.get('workload_handshake'))}")
     say(f"node bench (a) phase_histograms {json.dumps(res.get('phase_histograms'))}")
+    multihost = res.get("multihost_slice") or {}
+    say(f"node bench (a) multihost_slice: ok={multihost.get('ok')} seconds="
+        f"{multihost.get('seconds')} barrier_wait_s={multihost.get('barrier_wait_s')} "
+        f"(two hosts of one slice, 4 fake GPUs each, no smoke; {smi_line})")
+    if not multihost.get("ok"):
+        problems.append(f"bench multihost_slice: {json.dumps(multihost)}")
     say(f"node bench (a) cold vs warm smoke: smoke_cold_s={res.get('smoke_cold_s')} "
         f"smoke_warm_s={res.get('smoke_warm_s')} warm_speedup={cache.get('warm_speedup')} "
         f"cache_entries={cache.get('cache_entries')} warm_built={cache.get('warm_built')} "
@@ -4399,8 +4546,7 @@ def check_node_bench(torch, smi_line: str, smoke_k1: int, evidence_dir) -> dict:
               encoding="utf-8") as f:
         f.write(json.dumps({**cache, "metric": "smoke_cache_cold_warm_s"}) + "\n")
 
-    spare, rc, wall = run_bench("bench", ["--spare", "--out",
-                                          evidence_path(evidence_dir, "bench --spare")], env)
+    rc, wall = spare_rc, spare_wall
     say(f"node bench (b) spare {smi_line}: rc={rc} ok={spare.get('ok')} effective flip "
         f"{spare.get('effective_flip_wall_s')} s against the pool-mate's full path "
         f"{spare.get('full_path_wall_s')} s (bar drain+readmit "
@@ -4411,7 +4557,20 @@ def check_node_bench(torch, smi_line: str, smoke_k1: int, evidence_dir) -> dict:
             and spare["effective_flip_wall_s"] < spare["full_path_wall_s"]):
         problems.append(f"bench --spare: rc={rc} {json.dumps(spare)[:1500]}")
     add(bench_smokes("node bench (b)", spare.get("smokes") or [], smoke_k1, problems))
+    if problems:
+        fail("phase 21, the node bench: " + "; ".join(problems))
+    return launches
 
+
+def check_node_ab(smi_line: str, smoke_k1: int, evidence_dir) -> dict:
+    """Phase 21 (c), alone on the card: ``bench_ab --workloads matmul`` at
+    ``AB_REPS`` x ``AB_CYCLES``, both arms measured on the card, every
+    verify smoke with phase 5's K1 count, all ``sm90``, at the default
+    tiling; its line written where phase 23's evidence ladder under
+    ``evidence_dir`` keeps it, only when ``ok``. Returns the smokes'
+    launches, summed."""
+    env = {**os.environ, "CC_BENCH_REALISTIC_RUNS": str(BENCH_REALISTIC_RUNS)}
+    problems = []
     ab, rc, wall = run_bench("bench_ab", ["--workloads", "matmul", "--reps", str(AB_REPS),
                                           "--cycles", str(AB_CYCLES)], env)
     arms = (ab.get("workloads") or {}).get("matmul") or {}
@@ -4427,7 +4586,7 @@ def check_node_bench(torch, smi_line: str, smoke_k1: int, evidence_dir) -> dict:
         f"{arms.get('loss_pct_ci95_half_width')} (95%) loss_powered="
         f"{arms.get('loss_powered')} (both arms CC off: the fake device layer; the harness's "
         f"noise floor); the command {wall:.1f} s")
-    add(bench_smokes("node bench (c)", ab.get("smoke_kernels") or [], smoke_k1, problems))
+    launches = bench_smokes("node bench (c)", ab.get("smoke_kernels") or [], smoke_k1, problems)
     if ab.get("ok") is True:
         with open(evidence_path(evidence_dir, "ab"), "w", encoding="utf-8") as f:
             f.write(json.dumps(ab) + "\n")
@@ -5083,6 +5242,8 @@ def main(argv: list[str] | None = None) -> int:
 
     clock.lap("phase 1")
     # --- 2. build -----------------------------------------------------------
+    # Phase 19's image build step runs beside this build.
+    image_build = None if args.only_kernels else start_image_build()
     t0 = time.perf_counter()
     built = _build.build()
     say(f"build: {json.dumps({k: round(v, 2) for k, v in built.items()})} "
@@ -5132,6 +5293,8 @@ def main(argv: list[str] | None = None) -> int:
         fail(f"the f32 K1 and simt K2-K4 instances did not all build ({len(simt)} of "
              f"{SIMT_INSTANCES}) without spills at the Python shared memory: {problems}")
 
+    if image_build is not None:  # its nvcc ends before any kernel is timed
+        image_build[1].exception()
     clock.lap("phase 2")
     # --- 3. and 4. kernels against their plain versions ----------------------
     k1 = check_k1(torch, peaks, variant)
@@ -5145,30 +5308,15 @@ def main(argv: list[str] | None = None) -> int:
     # --- 5. matmul smoke, both kernels -----------------------------------------
     from tpu_cc_manager_torch.smoke.runner import SmokeError, run_workload_subprocess
 
-    # Launches per kernel and path, each path run with the counts at 0.
+    # Launches per kernel and path, each path run with the counts at 0. The
+    # ``--kernel cuda`` child is phase 16 (b)'s two-host flip's host 0 verify
+    # smoke (the same command), held to this phase's checks after it.
     paths = {}
-    for kernel in ("torch", "cuda"):
-        try:
-            res = run_workload_subprocess("matmul", timeout_s=300,
-                                          extra_args=["--kernel", kernel])
-        except SmokeError as e:
-            fail(f"matmul smoke --kernel {kernel}: {e}")
-        launches = {**res["kernel_launches"], **flat_variants(res["kernel_launches_by_variant"])}
-        say(f"matmul smoke kernel={kernel}: ok={res['ok']} size={res['size']} "
-            f"blocks={res['blocks']} tflops={res['tflops']} mfu={res['mfu']} "
-            f"ident_err={res['ident_err']} rowsum_rel_err={res['rowsum_rel_err']:.3e} "
-            f"launches={launches} devices={res['devices']} (visible {res['visible_devices']}) "
-            f"per_device={json.dumps(res['per_device'])}")
-        if res["backend"] != "cuda":
-            fail(f"matmul smoke ran on {res['backend']}, not the card")
-        # Either kernel verifies every card.
-        check_devices(f"matmul smoke --kernel {kernel}", res, torch.cuda.device_count())
-        if kernel == "cuda":
-            paths["matmul smoke"] = launches
-            if launches["K1"] <= 0 or launches["K1/sm90"] != launches["K1"]:
-                fail("matmul smoke --kernel cuda did not launch K1, or not all on its sm90 kernel")
-            if tiling_problem(res):
-                fail(f"matmul smoke --kernel cuda: {tiling_problem(res)}")
+    try:
+        res = run_workload_subprocess("matmul", timeout_s=300, extra_args=["--kernel", "torch"])
+    except SmokeError as e:
+        fail(f"matmul smoke --kernel torch: {e}")
+    check_matmul_smoke(torch, "torch", res)
 
     clock.lap("phase 5")
     # --- 6. Llama-3-8B inference smoke, full width ----------------------------
@@ -5259,16 +5407,16 @@ def main(argv: list[str] | None = None) -> int:
     paths.update(check_tp(torch, k2))
 
     clock.lap("phase 11")
-    # --- 12. the tp=2 train step, two processes on this card over gloo -------------
-    paths[f"tp={GLOO_TP} train step, {GLOO_TP} processes"] = check_gloo_tp_step(
-        torch, cut["losses"])
+    # --- 12. the tp=2 train step, two processes on this card over gloo, beside ----
+    # --- 13. the 8B smoke as one tp=2 group, two processes over gloo --------------
+    # Their verdicts are losses and oracles; their step seconds and walls are
+    # printed, not held, so the four processes share the card.
+    (paths[f"tp={GLOO_TP} train step, {GLOO_TP} processes"],
+     paths[f"llama smoke tp={GLOO_TP}, {GLOO_TP} processes"]) = side_by_side(
+        lambda: check_gloo_tp_step(torch, cut["losses"]),
+        lambda: check_gloo_smoke(torch, llama_one_card))
 
-    clock.lap("phase 12")
-    # --- 13. the 8B smoke as one tp=2 group, two processes over gloo ---------------
-    paths[f"llama smoke tp={GLOO_TP}, {GLOO_TP} processes"] = check_gloo_smoke(torch,
-                                                                             llama_one_card)
-
-    clock.lap("phase 13")
+    clock.lap("phases 12-13 (side by side)")
     # --- 14. the Hugging Face loader at Llama-3.2-1B width --------------------------
     paths["hf loader 1b forward"] = check_hf_loader(torch)
 
@@ -5279,6 +5427,9 @@ def main(argv: list[str] | None = None) -> int:
     clock.lap("phase 15")
     # --- 16. the port's agent on the card ------------------------------------------
     paths["agent verify smoke"], flip_smokes = check_agent(torch, smi_line)
+    paths["matmul smoke"] = check_matmul_smoke(
+        torch, "cuda", flip_smokes["slice"],
+        "phase 16 (b)'s two-host flip's host 0 verify smoke, the same command")
 
     clock.lap("phase 16")
     # --- 17. a rolling flip of a pool of two nodes, killed and resumed -------------
@@ -5293,15 +5444,11 @@ def main(argv: list[str] | None = None) -> int:
     clock.lap("phase 18")
     # --- 19. the agent as its DaemonSet starts it ---------------------------------
     paths["daemonset agent verify smoke"] = check_daemonset_agent(
-        torch, smi_line, paths["matmul smoke"]["K1"])
+        torch, smi_line, paths["matmul smoke"]["K1"], image_build)
 
     clock.lap("phase 19")
-    # --- 20. a training job through a CC flip via the drain handshake ------------
-    paths["job through a flip"] = check_job_through_flip(
-        torch, smi_line, paths["matmul smoke"]["K1"], cut["losses"])
-
-    clock.lap("phase 20")
-    # --- 21. the node bench on the card ----------------------------------------
+    # --- 20. a training job through a CC flip via the drain handshake, beside ---
+    # --- 21. the node bench on the card: (a) and (b), then (c) alone ------------
     # Phases 21 and 22 write their results where phase 23's ladder keeps them.
     import pathlib
     import shutil
@@ -5309,10 +5456,16 @@ def main(argv: list[str] | None = None) -> int:
     evidence_dir = pathlib.Path(__file__).resolve().parent / "build" / EVIDENCE_DIR
     shutil.rmtree(evidence_dir, ignore_errors=True)
     (evidence_dir / "artifacts").mkdir(parents=True)
-    paths["node bench verify smokes"] = check_node_bench(
-        torch, smi_line, paths["matmul smoke"]["K1"], evidence_dir)
+    # The job's verdicts are its losses, its order of events and a wall
+    # against a budget it keeps by far, so it shares the card with the bench.
+    paths["job through a flip"], bench = side_by_side(
+        lambda: check_job_through_flip(torch, smi_line, paths["matmul smoke"]["K1"],
+                                       cut["losses"]),
+        lambda: check_node_bench(torch, smi_line, paths["matmul smoke"]["K1"], evidence_dir))
+    ab = check_node_ab(smi_line, paths["matmul smoke"]["K1"], evidence_dir)
+    paths["node bench verify smokes"] = {k: bench[k] + ab[k] for k in COUNT_KEYS}
 
-    clock.lap("phase 21")
+    clock.lap("phases 20-21 (20 and 21 (a), (b) side by side)")
     # --- 22. the measurement tools on the card -----------------------------------
     fastest = tuple(k1["sweep"]["4096x4096x4096"]["rows"][0]["blocks"])
     paths["tools: tile sweep and batch ladder"] = check_tools(

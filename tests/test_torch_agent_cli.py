@@ -8,10 +8,13 @@ resnet at their CPU sizes); a bogus mode fails soft with the agent alive;
 SIGTERM exits 0; and the ``h100`` backend on a host with no GPU exits
 non-zero instead of carrying on with the fake. The tests of this file share
 one agent with the matmul smoke and run in order; the other smokes' flips
-each start an agent on a rig of their own."""
+each start an agent on a rig of their own. Two agents as the two hosts of
+one slice meet at the slice commit barrier on a rig of two nodes, as
+``hack/demo_multihost.sh`` drives two JAX agents."""
 
 import contextlib
 import signal
+import time
 
 import pytest
 
@@ -22,6 +25,9 @@ from tpu_cc_manager_torch.labels import (
     CC_MODE_STATE_LABEL,
     CC_READY_STATE_LABEL,
     DRAIN_COMPONENT_LABELS,
+    MODE_SLICE,
+    SLICE_ID_LABEL,
+    SLICE_STAGED_LABEL,
     STATE_FAILED,
 )
 from tpu_cc_manager_torch.utils.launch import free_port
@@ -117,3 +123,52 @@ def test_h100_without_a_gpu_exits_nonzero(rig):
     log = rig.log_of(proc)
     assert "h100 backend found no usable device" in log
     assert "fake" not in log.lower()
+
+
+@contextlib.contextmanager
+def deadline(seconds: float):
+    """Raise ``TimeoutError`` in the test once ``seconds`` have passed."""
+    def expired(signum, frame):
+        raise TimeoutError(f"over {seconds:g} s")
+
+    previous = signal.signal(signal.SIGALRM, expired)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+TWO_HOSTS_S = 150  # the whole demo: two agents' start, the hold, the flip, SIGTERM
+
+
+def test_two_agents_meet_at_the_slice_barrier(tmp_path):
+    """``hack/demo_multihost.sh`` on the port: host 0 labelled alone stages
+    and holds at the barrier without committing; once host 1 is labelled
+    both nodes read ``slice``, host 0 ready, host 0's ``barrier`` phase
+    spans host 1's drain, and both agents exit 0 on SIGTERM."""
+    with deadline(TWO_HOSTS_S), localrig.LocalRig(str(tmp_path / "rig"), nodes=2) as rig:
+        agents = localrig.start_slice_agents(rig, ["none", "none"], env=AGENT_ENV)
+        assert [rig.labels(a.node)[CC_MODE_STATE_LABEL] for a in agents] == ["off", "off"]
+        flip = localrig.flip_slice(rig, agents, timeout_s=FLIP_S)
+        logs = [rig.log_of(a)[-3000:] for a in agents]
+        assert flip["problems"] == [], logs
+        assert flip["alone"] == {SLICE_STAGED_LABEL: MODE_SLICE, CC_MODE_STATE_LABEL: "off"}
+        for a in agents:
+            labels = rig.labels(a.node)
+            assert labels[CC_MODE_STATE_LABEL] == MODE_SLICE, logs
+            assert labels[SLICE_ID_LABEL] == localrig.SLICE_ID
+        phases, _ = localrig.await_phases(agents[0].metrics_port, MODE_SLICE,
+                                          ("barrier", "readmit"), 30)
+        host1, _ = localrig.await_phases(agents[1].metrics_port, MODE_SLICE,
+                                         ("drain", "readmit"), 30)
+        # Host 0 waited at the barrier at least while host 1, labelled after
+        # the hold, drained.
+        assert phases["barrier"] >= host1["drain"] > 0, (phases, host1)
+        t0 = time.monotonic()
+        for a in agents:
+            a.send_signal(signal.SIGTERM)
+        assert [a.wait(timeout=GRACE_S + 20) for a in agents] == [0, 0], logs
+        assert time.monotonic() - t0 < GRACE_S + 20
+        assert not any(rig.readiness_file(a.node).exists() for a in agents)

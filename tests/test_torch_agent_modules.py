@@ -351,8 +351,8 @@ PROSE = {"ccmanager/remediation.py": 2, "ccmanager/multislice.py": 1,
 # re-run after a failed smoke; the port's node backend over 4 fake GPUs;
 # the repository root as the children's directory; retry.wait for
 # time.sleep (the port's lint); the cache bench on a copy of the package;
-# the spare held to its pool-mate; no multihost scenario (LEFT_OUT); and
-# what every verify smoke ran, reported.
+# the spare held to its pool-mate; the multihost scenario's two hosts, each
+# a node of 4 fake GPUs; and what every verify smoke ran, reported.
 SEAM.update({
     'bench/bench.py': (
         ['        "import jax, jax.numpy as jnp;"',
@@ -388,6 +388,9 @@ SEAM.update({
          '            smoke_runner=lambda w: _smoke_subprocess(',
          '                w, timeout_s=240.0, force_cpu=not tpu_usable',
          '            ),',
+         '        backend = FakeTpuBackend(',
+         '            num_chips=4, accelerator_type="v5p-32",',
+         '        )',
          '        backend=FakeTpuBackend(),',
          '    cache_dir = tempfile.mkdtemp(prefix="tpu-cc-smoke-cache-")',
          '    extra_env = {',
@@ -402,11 +405,8 @@ SEAM.update({
          '            extra_env=extra_env,',
          '        shutil.rmtree(cache_dir, ignore_errors=True)',
          '    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))',
-         '    multihost = run_multihost_scenario()',
          '    from tpu_cc_manager.utils.tpu_info import tpu_generation',
          '    chip_generation = smoke.get("generation") or tpu_generation()',
-         '        "multihost_slice": multihost,',
-         '        result["ok"] and multihost["ok"] and handshake["ok"]',
          '    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))',
          '    reference = 31.45',
          '        result["ok"] and value is not None and value < reference'],
@@ -444,6 +444,10 @@ SEAM.update({
          '            smoke_runner=timed_smoke,',
          '            "smokes": smokes,',
          '            "smoke_windows_overlap": windows_overlap(smokes),',
+         '    from tpu_cc_manager.tpudev.contract import TpuCcBackend',
+         '        backend = TpuCcBackend(FakeTpuBackend(',
+         '            num_gpus=4, node_id=name,',
+         '        ))',
          '    from tpu_cc_manager.tpudev.contract import TpuCcBackend',
          '    from tpu_cc_manager.utils import retry',
          '        backend=TpuCcBackend(FakeTpuBackend()),',
@@ -507,7 +511,6 @@ SEAM.update({
          '        "smoke_kernels": [',
          '            smoke_kernels(r["smoke"]) for r in [control] + realistic_runs',
          '        ],',
-         '        result["ok"] and handshake["ok"]',
          '    sys.path.insert(0, _REPO_ROOT)',
          '    if not tpu_usable:',
          '        return preflight_failed("spare_prestage_flip_sec")',
@@ -547,7 +550,7 @@ SEAM.update({
          '    if not tpu_usable:',
          '        return bench.preflight_failed("smoke_cache_cold_warm_s")']),
 })
-PROSE.update({'bench/bench.py': (87, 114), 'bench/bench_ab.py': (12, 25), 'bench/smoke_cache_bench.py': (12, 14)})
+PROSE.update({'bench/bench.py': (85, 116), 'bench/bench_ab.py': (12, 25), 'bench/smoke_cache_bench.py': (12, 14)})
 # The measurement tools' copies: the port's K1 table three directories
 # up, and texts that name the card (apply_sweep); the repository root,
 # and a calibration smoke that fails failing the bench (serve_bench); the
@@ -650,15 +653,15 @@ COPIES = ["ccmanager/watchdog.py", "ccmanager/remediation.py", "ccmanager/slicec
 
 # The node bench's copies and the repository files they copy (the others
 # copy ``tpu_cc_manager/<rel>``), and the top-level functions of a JAX
-# file that its copy leaves out: an H100 node is a one-host slice, so the
-# bench has no multihost scenario.
+# file that its copy leaves out: none, the bench's multihost scenario runs
+# over two fake H100 hosts of one slice.
 JAX_FILES = {"bench/bench.py": "bench.py", "bench/bench_ab.py": "bench_ab.py",
              "bench/smoke_cache_bench.py": "hack/smoke_cache_bench.py",
              "bench/apply_sweep.py": "hack/apply_sweep.py",
              "bench/serve_bench.py": "hack/serve_bench.py",
              "bench/scale_bench.py": "hack/scale_bench.py",
              "bench/obs_gateway.py": "hack/obs_gateway.py"}
-LEFT_OUT = {"bench/bench.py": ("run_multihost_scenario",)}
+LEFT_OUT = {"bench/bench.py": ()}
 
 
 def without_functions(text: str, names: tuple[str, ...]) -> str:

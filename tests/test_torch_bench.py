@@ -5,8 +5,9 @@ caller may) and run the real pipeline with real smoke children: the
 zero-latency scenario against the JAX ``bench.run_scenario`` (same
 pipeline phases in the same order, same ``mode.state`` label sequence);
 the realistic scenario at latencies cut to tenths of a second, whose
-serialized sum folds in the per-GPU ``reset.chip`` spans; the handshake and
-spare scenarios; the cache bench's gate with its smoke children stubbed,
+serialized sum folds in the per-GPU ``reset.chip`` spans; the handshake,
+multihost (two fake H100 hosts of one slice, beside the JAX bench's two TPU
+hosts) and spare scenarios; the cache bench's gate with its smoke children stubbed,
 and the isolation its real children get; ``bench_ab`` as a process.
 """
 
@@ -91,6 +92,17 @@ def test_the_realistic_scenario_folds_the_per_gpu_resets_into_the_sum():
 def test_the_handshake_scenario_checkpoints_before_the_pause():
     r = tbench.run_handshake_scenario(checkpoint_s=0.1)
     assert r["ok"] and r["checkpoint_before_pause"], r
+
+
+def test_the_multihost_scenario_meets_at_the_slice_barrier():
+    """Both hosts of the 2-host slice reach ``slice`` through the commit
+    barrier, each with its barrier wait, as in the JAX bench."""
+    want = jbench.run_multihost_scenario()
+    r = tbench.run_multihost_scenario()
+    assert r["ok"] and want["ok"], (r, want)
+    assert set(r) == set(want) == {"seconds", "ok", "barrier_wait_s"}
+    assert len(r["barrier_wait_s"]) == 2
+    assert all(w is not None and w >= 0 for w in r["barrier_wait_s"]), r
 
 
 def test_the_spare_is_flipped_ahead_of_the_wave():

@@ -1,8 +1,9 @@
 """``chip_smoke.py`` phase 16 (b): the agent CLI's flips with each verify
-smoke, one agent after the other on one rig (``cli_flip``), and the checks
-of each flip's smoke (``cli_smoke_problems``), on the CPU; and phase 22
-(c)'s serving bench, calibrated from the Llama flip's smoke
-(``serve_child``)."""
+smoke, one agent after the other on one rig (``cli_flip``), the checks of
+each flip's smoke (``cli_smoke_problems``), and the two-host flip of one
+slice (``cli_slice_flip``), whose host 0 smoke phase 5's checks take
+(``check_matmul_smoke``), on the CPU; and phase 22 (c)'s serving bench,
+calibrated from the Llama flip's smoke (``serve_child``)."""
 
 import json
 import pathlib
@@ -19,6 +20,8 @@ from tpu_cc_manager_torch.ccmanager import localrig  # noqa: E402
 CARD = [{"ok": True}]
 MATMUL = {"workload": "matmul", "ok": True, "backend": "cuda", "devices": 1, "per_device": CARD,
           "kernel": "cuda", "size": 4096, "generation": "h100-sxm", "blocks": [256, 128, 64],
+          "tflops": 468.1, "mfu": 0.473, "ident_err": 0.0, "rowsum_rel_err": 1.2e-3,
+          "visible_devices": 1,
           "kernel_launches": {"K1": 1922, "K2": 0, "K3": 0, "K4": 0},
           "kernel_launches_by_variant": {"K1": {"sm90": 1922, "simt": 0}}}
 LLAMA = {"workload": "llama", "ok": True, "backend": "cuda", "devices": 1, "per_device": CARD,
@@ -126,3 +129,50 @@ def test_the_serving_bench_child_holds_only_the_default_llama_smoke(call, tmp_pa
     monkeypatch.setattr(serve_bench, "main", lambda argv: runner.run_workload_subprocess(**call))
     with pytest.raises(runner.SmokeError, match="only the default Llama smoke"):
         chip_smoke.serve_child(str(recorded), SERVE_SMALL)
+
+
+def test_the_two_host_flip_meets_at_the_slice_barrier(tmp_path, monkeypatch):
+    """Phase 16 (b)'s two-host flip on the CPU: host 0 (the matmul smoke,
+    on the CPU here) stays staged while alone, then both hosts reach
+    ``slice`` with host 0 ready within the budget, host 0's phases hold its
+    barrier wait, host 0 logs one smoke and host 1 none, and both agents
+    exit 0."""
+    seen = []
+
+    def smokes_of(workload, smokes):
+        seen.append((workload, smokes))
+        return [] if len(smokes) == 1 and smokes[0]["ok"] else [f"smokes {smokes}"]
+
+    monkeypatch.setattr(chip_smoke, "cli_smoke_problems", smokes_of)
+    env = {"CC_SMOKE_DEVICE": "cpu", "OMP_NUM_THREADS": "1", "GPU_CC_FAKE_NUM_GPUS": "1",
+           "GPU_CC_FAKE_NUM_SWITCHES": "0"}
+    flip = chip_smoke.cli_slice_flip(tmp_path, env, "cpu")
+    assert [w for w, _ in seen] == ["matmul"]
+    assert flip["smoke"]["workload"] == "matmul" and flip["smoke"]["backend"] == "cpu"
+    assert flip["flip_s"] < chip_smoke.AGENT_BUDGET_S
+    assert set(chip_smoke.SLICE_PHASES) <= set(flip["phase_s"])
+    assert flip["phase_s"]["barrier"] > 0
+    assert (tmp_path / "slice-rig" / "state").is_dir()
+    assert (tmp_path / "slice-rig" / "state-demo-node-1").is_dir()
+
+
+@pytest.mark.parametrize("res, problem", [
+    (MATMUL, None),
+    ({**MATMUL, "blocks": [128, 128, 64]}, "not K1 at the default"),
+    ({**MATMUL, "kernel_launches_by_variant": {"K1": {"sm90": 1921, "simt": 1}}},
+     "not all on its sm90 kernel"),
+    ({**MATMUL, "backend": "cpu"}, "not the card"),
+    ({**MATMUL, "devices": 2}, "devices"),
+])
+def test_phase_5_holds_the_two_host_flips_smoke(res, problem, monkeypatch, capsys):
+    """Phase 5's ``--kernel cuda`` checks, given host 0's verify smoke of
+    the two-host flip in place of a child of its own."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    if problem is None:
+        launches = chip_smoke.check_matmul_smoke(torch, "cuda", res, "host 0")
+        assert launches["K1"] == launches["K1/sm90"] == 1922
+        assert "matmul smoke kernel=cuda (host 0)" in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.check_matmul_smoke(torch, "cuda", res, "host 0")
+        assert problem in capsys.readouterr().out

@@ -26,7 +26,7 @@ import pathlib
 import pytest
 from _pytest.assertion.rewrite import rewrite_asserts
 
-from tpu_cc_manager_torch.ccmanager.node import NodeBackend, to_label_mode
+from tpu_cc_manager_torch.ccmanager.node import NodeBackend, to_gpu_mode, to_label_mode
 from tpu_cc_manager_torch.gpudev.fake import FakeGpuBackend
 from tpu_cc_manager_torch.kubeclient.fake import FakeKube
 
@@ -52,14 +52,17 @@ PATHS = (("tpu_cc_manager/tpudev/", "tpu_cc_manager_torch/gpudev/"),
 
 class FakeNode(NodeBackend):
     """The port's fake node as the JAX suites drive ``FakeTpuBackend``: the
-    GPUs are the chips; the fake's controls and state pass through."""
+    GPUs are the chips; the fake's controls and state pass through. A
+    one-host slice is the node of the same name; each host of a slice of
+    several is a node of its own (``<slice>-host-<i>``) in that slice."""
 
     _OWN = ("gpu", "state_dir", "_devices")
     def __init__(self, num_chips: int = 4, accelerator_type: str = "h100-sxm",
                  slice_id: str = "fake-node-0", num_hosts: int = 1, host_index: int = 0,
                  **kwargs) -> None:
-        if num_hosts != 1 or host_index != 0:
-            raise ValueError("an H100 node is a one-host slice")
+        node_id = slice_id if num_hosts == 1 else f"{slice_id}-host-{host_index}"
+        if "initial_mode" in kwargs:  # a label mode: ``slice`` is the fake's ``ppcie``
+            kwargs["initial_mode"] = to_gpu_mode(kwargs["initial_mode"])
         slice_cc = kwargs.pop("slice_cc_supported", None)
         if slice_cc is not None:
             # A chip's slice-CC support is its GPU's PPCIe support; the
@@ -67,7 +70,9 @@ class FakeNode(NodeBackend):
             kwargs["ppcie_supported"] = (
                 list(slice_cc) + [True] * kwargs.get("num_switches", 4)
                 if isinstance(slice_cc, (list, tuple)) else slice_cc)
-        super().__init__(FakeGpuBackend(num_gpus=num_chips, node_id=slice_id, **kwargs))
+        super().__init__(FakeGpuBackend(num_gpus=num_chips, node_id=node_id,
+                                        num_hosts=num_hosts, host_index=host_index,
+                                        slice_id=slice_id, **kwargs))
 
     def __getattr__(self, name):
         return getattr(self.__dict__["gpu"], name)
@@ -246,8 +251,9 @@ def test_the_fake_node_passes_the_fakes_controls_through():
     node.stage_cc_mode(topo.chips, "slice")
     node.reset(topo.chips)
     assert node.committed == {0: "slice", 1: "slice"}
-    with pytest.raises(ValueError, match="one-host"):
-        FakeNode(num_hosts=2)
+    host = FakeNode(num_chips=2, num_hosts=2, host_index=1, slice_id="s1").discover()
+    assert (host.slice_id, host.num_hosts, host.host_index, host.is_multi_host) == \
+        ("s1", 2, 1, True)
 
 
 def test_committed_reads_the_fake_without_spending_a_fault():

@@ -3,16 +3,14 @@ per-node agents (``CCManager.watch_and_apply`` in threads), the case of
 ``tests/test_integration_rollout.py`` run through
 ``test_torch_fleet_sides.port_suite``.
 
-The JAX pool is two 2-host TPU slices, whose hosts cross the slice commit
-barrier (``ccmanager/slicecoord.py``). An H100 node is a one-host slice of
-its GPUs (``ccmanager/node.py``), so the port's ``POOL`` is one HGX node per
-slice, named for it. The JAX case's invariants hold per slice as they are:
-every host staged before any reset, and with ``max_unavailable=1``
-``slice-a`` finished all its hardware ops before ``slice-b`` started any.
+The pool is the JAX case's: two 2-host slices, each host a fake HGX node
+of its slice, whose hosts cross the slice commit barrier
+(``ccmanager/slicecoord.py``). The JAX case's invariants hold as they are:
+every host of a slice staged before any of its resets, and with
+``max_unavailable=1`` ``slice-a`` finished all its hardware ops before
+``slice-b`` started any.
 """
 
 from test_torch_fleet_sides import fake_kube, port_suite  # noqa: F401
 
 port_suite(globals(), "test_integration_rollout")
-
-POOL = {"slice-a": ("node-a0",), "slice-b": ("node-b0",)}

@@ -1,33 +1,18 @@
-"""The slice commit barrier (``ccmanager/slicecoord.py``) on the port: the
-cases of ``tests/test_slicecoord.py``, run through
+"""The slice commit barrier (``ccmanager/slicecoord.py``) on the port: every
+case of ``tests/test_slicecoord.py``, run through
 ``test_torch_fleet_sides.port_suite``, over the port's ``FakeKube`` and its
 fake H100 node where the JAX suite builds ``FakeTpuBackend``.
 
-Left out, each because it drives a multi-host slice (two or more hosts
-staging, draining and meeting at the barrier); an H100 node is a one-host
-slice of its GPUs (``ccmanager/node.py``), so the port's fake node refuses
-``num_hosts > 1``:
-
-- ``test_no_reset_before_all_hosts_staged_and_drained``;
-- ``test_multi_host_barrier_applies_to_any_mode``;
-- ``test_barrier_timeout_fails_soft``;
-- ``test_crash_mid_barrier_peer_recovers``;
-- ``test_leader_crash_after_commit_recovers``;
-- ``test_stuck_drain_on_one_host_fails_the_slice_soft``;
-- ``test_leader_leaves_commit_marker_when_peer_never_finishes``.
-
-``test_single_host_topology_skips_barrier`` and
-``test_barrier_tolerates_transient_peer_listing_failures`` run.
+The multi-host cases build each host of a two-host slice as a fake node of
+its own (``FakeGpuBackend(num_hosts=2, host_index=i, slice_id=...)``), as
+the JAX suite builds two TPU hosts: the barrier's ordering, its timeout,
+crash recovery on either side of the commit marker and a stuck drain on
+one host all run on the port. The suite's ``SeqBackend`` subclasses the
+port's fake node, so its stage and reset notes wrap the node's calls.
+``test_crash_mid_barrier_peer_recovers`` waits out the barrier's deadline
+(about 60 s), as it does in the JAX suite.
 """
 
 from test_torch_fleet_sides import fake_kube, fake_tpu, port_suite  # noqa: F401
 
-port_suite(globals(), "test_slicecoord", drop=(
-    "test_no_reset_before_all_hosts_staged_and_drained",
-    "test_multi_host_barrier_applies_to_any_mode",
-    "test_barrier_timeout_fails_soft",
-    "test_crash_mid_barrier_peer_recovers",
-    "test_leader_crash_after_commit_recovers",
-    "test_stuck_drain_on_one_host_fails_the_slice_soft",
-    "test_leader_leaves_commit_marker_when_peer_never_finishes",
-))
+port_suite(globals(), "test_slicecoord")

@@ -32,10 +32,9 @@ matmul smoke workload (K1 on the card) in a subprocess on one NVIDIA card:
 The result is self-describing: smoke backend, card variant, and MFU ride
 along so the throughput number carries its own denominator.
 
-What the port leaves out or changes: the multihost scenario
-(``run_multihost_scenario``, the ``multihost_slice`` key and its term of
-``ok``), since an H100 node is a one-host slice and the port's fake node
-refuses ``num_hosts > 1``; the CPU fallback, since a run that measures the
+What the port leaves out or changes: the multihost scenario's hosts are
+fake H100 nodes, two hosts of one slice (a real H100 node is a one-host
+slice; the fake takes ``num_hosts``); the CPU fallback, since a run that measures the
 card must not carry on on the CPU (a failed preflight or smoke fails the
 bench: ``"ok": false`` and exit 1; the scenario functions still take the
 usable flag, so a caller can ask for the CPU explicitly); and the spare
@@ -574,6 +573,77 @@ def run_spare_prestage_scenario(
             t.join(timeout=15)
 
 
+def run_multihost_scenario() -> dict:
+    """Two agents of one 2-host slice transition to mode 'slice' through
+    the cross-host commit barrier (ccmanager/slicecoord.py) — the
+    fabric-atomicity evidence: wall time for the whole slice, plus each
+    host's time spent waiting at the barrier."""
+    from tpu_cc_manager_torch.ccmanager.manager import CCManager
+    # Seam: the manager drives the GPUs through the port's node backend.
+    from tpu_cc_manager_torch.ccmanager.node import NodeBackend
+    from tpu_cc_manager_torch.kubeclient.api import node_labels
+    from tpu_cc_manager_torch.labels import CC_MODE_STATE_LABEL
+    from tpu_cc_manager_torch.obs.journal import Journal
+    from tpu_cc_manager_torch.gpudev.fake import FakeGpuBackend
+    from tpu_cc_manager_torch.utils.metrics import MetricsRegistry
+
+    ns = NS
+    names = [f"bench-mh-{i}" for i in range(2)]
+    kube = make_bench_kube(names)
+
+    managers = []
+    for i, name in enumerate(names):
+        # Seam: each host a node of 4 fake GPUs, behind the port's node
+        # backend, host i of the 2-host slice.
+        backend = NodeBackend(FakeGpuBackend(
+            num_gpus=4, node_id=name,
+            num_hosts=2, host_index=i, slice_id="bench-slice",
+        ))
+        managers.append(CCManager(
+            api=kube, backend=backend, node_name=name,
+            operator_namespace=ns, evict_components=True,
+            smoke_workload="none", metrics=MetricsRegistry(),
+            # Bench spans must not land in an operator's CC_TRACE_FILE.
+            journal=Journal(trace_file=""),
+            eviction_poll_interval_s=0.05,
+            slice_barrier_poll_interval_s=0.02,
+        ))
+
+    results = {}
+    t0 = time.perf_counter()
+    threads = [
+        threading.Thread(
+            target=lambda i=i, m=m: results.update({i: m.set_cc_mode("slice")}),
+            daemon=True,  # a wedged reconcile must not hold the bench open
+        )
+        for i, m in enumerate(managers)
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    dt = time.perf_counter() - t0
+    timed_out = any(t.is_alive() for t in threads)
+
+    states = [
+        node_labels(kube.get_node(n)).get(CC_MODE_STATE_LABEL) for n in names
+    ]
+    barrier_waits = [
+        round(m.metrics.last().phase_seconds("barrier"), 3)
+        if m.metrics.last() else None
+        for m in managers
+    ]
+    return {
+        "seconds": round(dt, 2),
+        "ok": (
+            not timed_out
+            and all(results.get(i) for i in range(2))
+            and states == ["slice"] * 2
+        ),
+        "barrier_wait_s": barrier_waits,
+    }
+
+
 def run_handshake_scenario(checkpoint_s: float = 0.5) -> dict:
     """One drain with a registered training job that checkpoints before
     the pause (drain/handshake.py): measures what the workload handshake
@@ -801,6 +871,7 @@ def main() -> int:
     realistic = sorted(realistic_runs, key=lambda r: r["seconds"])[
         (len(realistic_runs) - 1) // 2
     ]
+    multihost = run_multihost_scenario()
     handshake = run_handshake_scenario()
     # Kernel-cache proof: cold vs warm smoke across a simulated CC bounce
     # (fresh process each run; only the disk cache persists).
@@ -873,6 +944,9 @@ def main() -> int:
                 r["overlap_saved_s"] for r in realistic_runs
             ],
         },
+        # Fabric atomicity evidence: both hosts of a 2-host slice through
+        # the cross-host commit barrier (ccmanager/slicecoord.py).
+        "multihost_slice": multihost,
         # Workload-handshake cost: a registered training job checkpoints
         # (0.5 s simulated) strictly before any component pause; the
         # scenario's wall time bounds what the handshake adds to a drain.
@@ -883,7 +957,7 @@ def main() -> int:
         ],
     }
     result["ok"] = bool(
-        result["ok"] and handshake["ok"]
+        result["ok"] and multihost["ok"] and handshake["ok"]
         and smoke_cache["ok"]
     )
     print(json.dumps(result))

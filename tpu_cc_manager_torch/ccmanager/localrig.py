@@ -1,4 +1,4 @@
-"""The agent on one host with no cluster: ``hack/mock_apiserver.py`` in a
+"""The agent on one machine with no cluster: ``hack/mock_apiserver.py`` in a
 process of its own, a kubeconfig that points at it, and the port's agent
 (``python -m tpu_cc_manager_torch``) as a process, as
 ``hack/demo_local.sh`` runs the JAX agent::
@@ -13,9 +13,21 @@ Every process runs under ``timeout --foreground``, in a process group of
 its own that the rig's ``close`` ends. A signal sent to ``timeout`` reaches
 the process once: without ``--foreground`` it also signals its whole group,
 and the agent takes a second SIGTERM as "exit now" (143).
-The mock serves one node, ``demo-node-0``, with the operator's component
-labels and pods, and plays their DaemonSets: a paused component's pod goes
-and comes back on unpause.
+The mock serves ``nodes`` nodes (one by default), ``demo-node-0`` to
+``demo-node-<nodes - 1>``, each with the operator's component labels and
+pods, and plays their DaemonSets: a paused component's pod goes and comes
+back on unpause. ``start_agent``, ``set_label``, ``labels`` and
+``await_labels`` take the node, ``demo-node-0`` unless told.
+
+Two agents can be the two hosts of one slice on the fake device layer, as
+``hack/demo_multihost.sh`` runs the JAX agent (:func:`start_slice_agents`,
+:func:`flip_slice`): the desired mode on host 0 alone leaves it staged at
+the slice commit barrier, and once host 1 is labelled too the barrier forms
+and both hosts commit::
+
+    with LocalRig(workdir, nodes=2) as rig:
+        agents = start_slice_agents(rig, ["none", "none"], env={...})
+        flip = flip_slice(rig, agents)  # flip["problems"] is empty when it passed
 
 A training job can ride through a flip beside the agent, as the workload
 side of the drain handshake (``drain/handshake.py``) sees it: the job
@@ -50,6 +62,13 @@ import time
 import urllib.error
 import urllib.request
 
+from tpu_cc_manager_torch.labels import (
+    CC_MODE_LABEL,
+    CC_MODE_STATE_LABEL,
+    CC_READY_STATE_LABEL,
+    MODE_SLICE,
+    SLICE_STAGED_LABEL,
+)
 from tpu_cc_manager_torch.utils.launch import free_port
 from tpu_cc_manager_torch.utils.poll import poll_until
 
@@ -88,8 +107,9 @@ class LocalRig:
     """A mock apiserver and the agents started against it, under
     ``workdir`` (kubeconfig, readiness files, state dirs, logs)."""
 
-    def __init__(self, workdir: str) -> None:
+    def __init__(self, workdir: str, nodes: int = 1) -> None:
         self.workdir = pathlib.Path(workdir)
+        self.nodes = [f"demo-node-{i}" for i in range(nodes)]
         self.workdir.mkdir(parents=True, exist_ok=True)
         self.port = free_port()
         self.kubeconfig = str(self.workdir / "kubeconfig.yaml")
@@ -123,7 +143,7 @@ class LocalRig:
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["MOCK_BOOKMARK_INTERVAL_S"] = str(BOOKMARK_INTERVAL_S)
         proc = self._spawn("apiserver", [sys.executable, "hack/mock_apiserver.py",
-                                         str(self.port)], env)
+                                         str(self.port), str(len(self.nodes))], env)
 
         def up() -> bool:
             if proc.poll() is not None:
@@ -139,13 +159,13 @@ class LocalRig:
             raise RuntimeError(f"mock apiserver did not answer within {START_S} s")
 
     def start_agent(self, args: list[str], metrics_port: int | None = None,
-                    env: dict | None = None) -> subprocess.Popen:
-        """``python -m tpu_cc_manager_torch [args]`` for the mock's node,
+                    env: dict | None = None, node: str = NODE) -> subprocess.Popen:
+        """``python -m tpu_cc_manager_torch [args]`` for the mock's ``node``,
         with its readiness file and state dir under the rig's workdir."""
         full_env = self._port_env({
-            "NODE_NAME": NODE, "OPERATOR_NAMESPACE": "tpu-operator",
-            "CC_READINESS_FILE": str(self.readiness_file()),
-            "CC_STATE_DIR": str(self.workdir / "state"), **(env or {})})
+            "NODE_NAME": node, "OPERATOR_NAMESPACE": "tpu-operator",
+            "CC_READINESS_FILE": str(self.readiness_file(node)),
+            "CC_STATE_DIR": str(self._node_path("state", node)), **(env or {})})
         if metrics_port:
             args = [*args, "--metrics-port", str(metrics_port)]
         return self._spawn(f"agent-{len(self.procs)}",
@@ -183,23 +203,33 @@ class LocalRig:
         return self.logs[proc.pid].read_text(encoding="utf-8", errors="replace")
 
     def state(self) -> dict:
-        """The node's labels, pods and events as the mock holds them."""
+        """The nodes' labels, the pods and the events as the mock holds
+        them: ``labels`` for a rig of one node, ``nodes`` (each node's
+        labels by name) for more."""
         return json.loads(_request(f"http://127.0.0.1:{self.port}/_ctl/state", {}))
 
-    def labels(self) -> dict:
-        return self.state()["labels"]
+    def labels(self, node: str = NODE) -> dict:
+        state = self.state()
+        return state["labels"] if "labels" in state else state["nodes"][node]
 
-    def set_label(self, key: str, value: str | None) -> None:
+    def set_label(self, key: str, value: str | None, node: str = NODE) -> None:
         _request(f"http://127.0.0.1:{self.port}/_ctl/set-label",
-                 {"node": NODE, "key": key, "value": value})
+                 {"node": node, "key": key, "value": value})
 
-    def await_labels(self, want: dict, timeout_s: float) -> bool:
-        """Poll until every label in ``want`` holds its value (None: absent)."""
-        return poll_until(lambda: all(self.labels().get(k) == v for k, v in want.items()),
-                          timeout_s, POLL_S)
+    def await_labels(self, want: dict, timeout_s: float, node: str = NODE) -> bool:
+        """Poll until every label in ``want`` holds its value (None: absent)
+        on ``node``."""
+        return poll_until(
+            lambda: all(self.labels(node).get(k) == v for k, v in want.items()),
+            timeout_s, POLL_S)
 
-    def readiness_file(self) -> pathlib.Path:
-        return self.workdir / "ready"
+    def _node_path(self, name: str, node: str) -> pathlib.Path:
+        """``name`` under the workdir for the first node, ``name-<node>``
+        for any other."""
+        return self.workdir / (name if node == NODE else f"{name}-{node}")
+
+    def readiness_file(self, node: str = NODE) -> pathlib.Path:
+        return self._node_path("ready", node)
 
     def close(self) -> None:
         """SIGTERM each process group still running, SIGKILL after 15 s."""
@@ -256,6 +286,85 @@ def await_phases(port: int, mode: str, phases, timeout_s: float) -> tuple[dict, 
 
     poll_until(recorded, timeout_s, POLL_S)
     return seen
+
+
+# ---- two hosts of one slice ------------------------------------------------------
+
+SLICE_ID = "demo-slice"
+SLICE_BARRIER_TIMEOUT_S = 120  # each agent's CC_SLICE_BARRIER_TIMEOUT_S
+HOLD_S = 6.0  # host 0 labelled alone, as hack/demo_multihost.sh sleeps
+START_AGENT_S = 60  # an agent's /metrics and its first reconcile
+SLICE_FLIP_S = 120  # the demo's wait for both hosts' mode.state
+
+
+def start_slice_agents(rig: LocalRig, workloads: list[str],
+                       env: dict | None = None) -> list[subprocess.Popen]:
+    """One agent a node of ``rig``, host i of a ``len(workloads)``-host
+    slice on the fake device layer with ``--smoke-workload workloads[i]``
+    and the demo's barrier deadline, each serving ``/metrics`` on a port of
+    its own (``proc.metrics_port``). Returns once every agent answers and
+    its node has its first mode state; raises ``RuntimeError`` with the
+    agent's log when one did not."""
+    agents = []
+    for i, workload in enumerate(workloads):
+        port = free_port()
+        host = {"GPU_CC_FAKE_NUM_HOSTS": str(len(workloads)),
+                "GPU_CC_FAKE_HOST_INDEX": str(i), "GPU_CC_FAKE_SLICE_ID": SLICE_ID,
+                "CC_SLICE_BARRIER_TIMEOUT_S": str(SLICE_BARRIER_TIMEOUT_S)}
+        proc = rig.start_agent(["--gpu-backend", "fake", "--smoke-workload", workload],
+                               metrics_port=port, env={**(env or {}), **host},
+                               node=rig.nodes[i])
+        proc.metrics_port, proc.node = port, rig.nodes[i]
+        agents.append(proc)
+    for proc in agents:
+        started = poll_until(
+            lambda p=proc: p.poll() is not None or (
+                metrics_text(p.metrics_port) is not None
+                and rig.labels(p.node).get(CC_MODE_STATE_LABEL) is not None),
+            START_AGENT_S, POLL_S)
+        if not started or proc.poll() is not None:
+            raise RuntimeError(f"the agent of {proc.node} did not start: "
+                               f"{rig.log_of(proc)[-3000:]}")
+    return agents
+
+
+def flip_slice(rig: LocalRig, agents: list[subprocess.Popen],
+               timeout_s: float = SLICE_FLIP_S) -> dict:
+    """``hack/demo_multihost.sh``'s flip over agents of
+    :func:`start_slice_agents`: the desired mode ``slice`` on host 0 alone,
+    which must not commit in the ``HOLD_S`` after its label and must show
+    its staged marker at the end of them; then on every other host, after which every node must read
+    ``slice`` and host 0 must read ready. Returns what host 0 showed while
+    alone, the seconds from the last host's label to that (``flip_s``,
+    drain->ready of the slice as host 0 sees it), and ``problems``: empty
+    when the flip passed."""
+    host0, others, mode = agents[0], agents[1:], MODE_SLICE
+    rig.set_label(CC_MODE_LABEL, mode, node=host0.node)
+    # Host 0 alone, as the demo sleeps: watched for a commit through the
+    # hold, which its drain and stage take the start of.
+    committed = poll_until(
+        lambda: rig.labels(host0.node).get(CC_MODE_STATE_LABEL) == mode, HOLD_S, POLL_S)
+    alone = {k: rig.labels(host0.node).get(k)
+             for k in (SLICE_STAGED_LABEL, CC_MODE_STATE_LABEL)}
+    problems = []
+    if alone[SLICE_STAGED_LABEL] != mode:
+        problems.append(f"host 0 did not publish its staged marker: {alone}")
+    if committed or alone[CC_MODE_STATE_LABEL] == mode:
+        problems.append(f"host 0 committed {mode} without its peers")
+    t0 = time.perf_counter()
+    for proc in others:
+        rig.set_label(CC_MODE_LABEL, mode, node=proc.node)
+    flipped = all(rig.await_labels({CC_MODE_STATE_LABEL: mode}, timeout_s, node=p.node)
+                  for p in agents)
+    flipped = flipped and rig.await_labels({CC_READY_STATE_LABEL: "true"}, timeout_s,
+                                           node=host0.node)
+    flip_s = time.perf_counter() - t0
+    if not flipped:
+        problems.append(f"the slice did not reach {mode} with host 0 ready in "
+                        f"{timeout_s:g} s: " + json.dumps(
+                            {p.node: rig.labels(p.node).get(CC_MODE_STATE_LABEL)
+                             for p in agents}))
+    return {"alone": alone, "flip_s": flip_s, "problems": problems}
 
 
 # ---- the training job beside the agent ------------------------------------------

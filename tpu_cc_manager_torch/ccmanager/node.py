@@ -1,5 +1,5 @@
-"""Where the agent meets the device layer: an H100 node as the manager's
-one-host slice.
+"""Where the agent meets the device layer: an H100 node as a host of the
+manager's slice.
 
 The manager, the watchdog and the remediation ladder are copies of the JAX
 package's, written against ``tpudev/contract.py``: a slice of chips, a
@@ -12,7 +12,10 @@ way, and is the only place they touch ``gpudev``:
 - a GPU is ``slice_cc_supported`` only when it and every NVSwitch of the
   node can join Protected PCIe, so the manager's all-chips rule covers the
   switches it never sees;
-- the node is a one-host slice named by the node id;
+- the node is host ``host_index`` of the ``num_hosts`` hosts of the slice
+  its topology names: on hardware a one-host slice named by the node id
+  (Protected PCIe spans one node), on the fake any host of a slice of
+  several, so the slice commit barrier and peer fencing run;
 - the label mode ``slice`` is the device layer's ``ppcie``, both ways; a
   fake quote's HMAC covers the mode, so it is signed again under the label
   mode (the ``h100`` evidence does not cover it);
@@ -69,7 +72,7 @@ class ChipView:
 @dataclass(frozen=True)
 class SliceView:
     """The node as the manager reads it (the JAX ``SliceTopology``'s
-    fields): always one host."""
+    fields): one host of a slice, the only one on hardware."""
 
     slice_id: str
     accelerator_type: str
@@ -112,8 +115,8 @@ class NodeBackend:
                                cc_supported=d.cc_supported,
                                slice_cc_supported=d.ppcie_supported and fabric)
                       for d in topo.devices)
-        return SliceView(slice_id=topo.node_id, accelerator_type=topo.variant,
-                         num_hosts=1, host_index=0, chips=chips)
+        return SliceView(slice_id=topo.slice_id, accelerator_type=topo.variant,
+                         num_hosts=topo.num_hosts, host_index=topo.host_index, chips=chips)
 
     def query_cc_mode(self, chip: ChipView) -> str:
         return to_label_mode(self.gpu.query_cc_mode(self._devs((chip,))[0]))

@@ -26,9 +26,10 @@ __all__ = ["AttestationQuote", "GpuCcBackend", "GpuDevice", "GpuError", "NodeTop
 
 def load_backend(name: str, **kwargs) -> GpuCcBackend:
     """``fake`` or ``h100``. The fake node's topology comes from
-    ``GPU_CC_FAKE_{NUM_GPUS,NUM_SWITCHES,NODE_ID}`` (the JAX
-    ``TPU_CC_FAKE_*`` variables, a node in place of a slice) where the
-    caller does not pass it."""
+    ``GPU_CC_FAKE_{NUM_GPUS,NUM_SWITCHES,NODE_ID,NUM_HOSTS,HOST_INDEX,SLICE_ID}``
+    (the JAX ``TPU_CC_FAKE_*`` variables, a node of GPUs in place of a host
+    of chips) where the caller does not pass it, so the hosts of one
+    multi-host slice can be separate agent processes."""
     if name == "fake":
         from tpu_cc_manager_torch.gpudev.fake import FakeGpuBackend
 
@@ -39,6 +40,12 @@ def load_backend(name: str, **kwargs) -> GpuCcBackend:
             kwargs.setdefault("num_switches", int(env["GPU_CC_FAKE_NUM_SWITCHES"]))
         if "GPU_CC_FAKE_NODE_ID" in env:
             kwargs.setdefault("node_id", env["GPU_CC_FAKE_NODE_ID"])
+        if "GPU_CC_FAKE_NUM_HOSTS" in env:
+            kwargs.setdefault("num_hosts", int(env["GPU_CC_FAKE_NUM_HOSTS"]))
+        if "GPU_CC_FAKE_HOST_INDEX" in env:
+            kwargs.setdefault("host_index", int(env["GPU_CC_FAKE_HOST_INDEX"]))
+        if "GPU_CC_FAKE_SLICE_ID" in env:
+            kwargs.setdefault("slice_id", env["GPU_CC_FAKE_SLICE_ID"])
         return FakeGpuBackend(**kwargs)
     if name == "h100":
         from tpu_cc_manager_torch.gpudev.h100 import H100Backend

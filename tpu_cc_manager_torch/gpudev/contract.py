@@ -5,8 +5,10 @@ is gpu-admin-tools (SURVEY.md §1 L1): per-device GPU and NVSwitch objects
 whose CC and Protected-PCIe (PPCIe) modes are staged, committed by a reset
 and verified after boot. The methods and their call sequence are the JAX
 contract's (``TpuCcBackend``), so the unchanged ``CCManager`` drives this
-layer through a thin adapter; the unit of state is the device, and a node
-is one host.
+layer through a thin adapter; the unit of state is the device. A real H100
+node is one host of a one-host slice (Protected PCIe spans one node's GPUs
+and NVSwitches); the fake node can be one host of a slice of several, as
+the JAX fake's TPU host can.
 
 Two kinds of device meet here. GPUs carry the CC mode (``on``, ``off``,
 ``devtools``); NVSwitches have no CC mode and take part only in PPCIe, the
@@ -110,12 +112,21 @@ class GpuDevice:
 @dataclass(frozen=True)
 class NodeTopology:
     """This node's NVIDIA devices: ``devices`` are the GPUs (the CC set the
-    manager selects from), ``switches`` the NVSwitches."""
+    manager selects from), ``switches`` the NVSwitches. The node is host
+    ``host_index`` of ``num_hosts`` of the slice ``slice_id``, which reads
+    as ``node_id`` when unset: a one-host slice named by its node."""
 
     node_id: str
     variant: str
     devices: tuple[GpuDevice, ...] = field(default_factory=tuple)
     switches: tuple[GpuDevice, ...] = field(default_factory=tuple)
+    num_hosts: int = 1
+    host_index: int = 0
+    slice_id: str | None = None
+
+    def __post_init__(self) -> None:
+        if self.slice_id is None:
+            object.__setattr__(self, "slice_id", self.node_id)
 
     @property
     def all_devices(self) -> tuple[GpuDevice, ...]:
@@ -131,7 +142,8 @@ class NodeTopology:
 @dataclass(frozen=True)
 class AttestationQuote:
     """The JAX ``AttestationQuote``'s fields, so a quote serializes to the
-    same bytes on both device layers (``slice_id`` holds the node id)."""
+    same bytes on both device layers (``slice_id`` holds the topology's
+    slice id: the node id on a one-host node)."""
 
     slice_id: str
     nonce: str

@@ -13,7 +13,12 @@ NVSwitches. It implements the whole contract with:
 - scalar or per-device reset and boot latencies, the per-device ones
   fanned out on a bounded pool, each device's reset seconds in ``op_log``;
 - quotes HMAC-signed with the JAX fake's key and message, byte for byte,
-  so the JAX verifier accepts them;
+  so the JAX verifier accepts them; a quote names and is signed over the
+  slice, which is the node on a one-host node;
+- one host of a slice of several (``num_hosts``, ``host_index``,
+  ``slice_id``, as the JAX fake takes them), so the agent's multi-host
+  paths (the slice commit barrier, peer fencing) run on the port; a real
+  H100 node is a one-host slice;
 - the GPUs' CC ready state: a reset into a CC mode clears it and
   ``set_gpus_ready`` sets it, and :meth:`FakeGpuBackend.run_smoke`, a
   stand-in verify smoke, is refused while it is clear, as CUDA work is
@@ -71,7 +76,8 @@ def _flags(spec, n: int) -> list:
 
 
 class FakeGpuBackend(GpuCcBackend):
-    """An HGX-style node by default: 8 H100 GPUs behind 4 NVSwitches."""
+    """An HGX-style node by default: 8 H100 GPUs behind 4 NVSwitches, a
+    one-host slice named by ``node_id`` unless ``slice_id`` names another."""
 
     def __init__(
         self,
@@ -80,6 +86,9 @@ class FakeGpuBackend(GpuCcBackend):
         name: str = "NVIDIA H100 80GB HBM3",
         variant: str = "h100-sxm",
         node_id: str = "fake-node-0",
+        num_hosts: int = 1,
+        host_index: int = 0,
+        slice_id: str | None = None,
         cc_supported: bool | list[bool] = True,
         ppcie_supported: bool | list[bool] = True,
         initial_mode: str = MODE_OFF,
@@ -104,7 +113,8 @@ class FakeGpuBackend(GpuCcBackend):
             for j in range(num_switches)
         )
         self._topology = NodeTopology(node_id=node_id, variant=variant,
-                                      devices=gpus, switches=switches)
+                                      devices=gpus, switches=switches, num_hosts=num_hosts,
+                                      host_index=host_index, slice_id=slice_id)
         self._lock = threading.Lock()
         ppcie_on = initial_mode == MODE_PPCIE
         self.committed_cc: dict[int, str] = {
@@ -349,10 +359,10 @@ class FakeGpuBackend(GpuCcBackend):
             "runtime_digest": hashlib.sha256(b"fake-h100-runtime").hexdigest(),
             "cc_mode": mode,
         }
-        sig = sign_fake_quote(topo.node_id, nonce, mode, measurements)
+        sig = sign_fake_quote(topo.slice_id, nonce, mode, measurements)
         self.op_log.append(("attest", nonce))
         log.info("fake backend: attest")
-        return AttestationQuote(slice_id=topo.node_id, nonce=nonce, mode=mode,
+        return AttestationQuote(slice_id=topo.slice_id, nonce=nonce, mode=mode,
                                 measurements=measurements, signature=sig, platform="fake")
 
     def set_gpus_ready(self) -> None:

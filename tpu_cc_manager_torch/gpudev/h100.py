@@ -22,6 +22,12 @@ it is about to reset): it reads devices through sysfs and NVML only.
 Every environment-touching part is injectable: the sysfs root, the NVML
 object, the admin library, the state directory and the metadata URL.
 
+The node is always a one-host slice named by its node id (``num_hosts=1,
+host_index=0``, and ``slice_id`` the node id in its topology and its
+quotes): Hopper's Protected PCIe spans one node's GPUs and NVSwitches, so
+no CC domain reaches across hosts, and the JAX ``TpuVmBackend``'s
+multi-host discovery from TPU-VM metadata has no counterpart here.
+
 Runtime-health tiers (the JAX contract's names): ``probe-cmd`` is NVML
 answering for every GPU of the node (a handle by PCI address and its name,
 the driver's own management path); ``device-node`` is ``/dev/nvidia<N>``

@@ -32,7 +32,6 @@ import time
 import torch
 
 from tpu_cc_manager_torch import ops
-from tpu_cc_manager_torch.models.llama import matmul_f32_out
 from tpu_cc_manager_torch.ops import _build
 from tpu_cc_manager_torch.ops.matmul import check_sm90_tile, default_blocks
 from tpu_cc_manager_torch.smoke.runner import (
@@ -152,6 +151,9 @@ def verify_rows(dev, index: int, count: int, size: int, iters: int, seed: int,
             return tiled_matmul(x, y, block_m=bm, block_n=bn, block_k=bk)
 
     else:
+        # Here, not at import: the model module's imports (DTensor) add
+        # seconds to every smoke child's start.
+        from tpu_cc_manager_torch.models.llama import matmul_f32_out
 
         def product(x, y):
             return matmul_f32_out(x, y)
