@@ -635,6 +635,21 @@ SEAM.update({
          'os.path.abspath(__file__)))))']),
 })
 PROSE.update({'bench/obs_gateway.py': (3, 4)})
+# The port's compute-path regions: the model's and the train step's
+# profiler ranges, beside the control plane's spans, and the paragraph of
+# the module docstring and the function docstring that describe them.
+SEAM.update({
+    'obs/trace.py': (
+        [],
+        ['import sys',
+         '_NO_REGION = contextlib.nullcontext()',
+         'def region(name: str):',
+         '    profiler = sys.modules.get("torch.autograd.profiler")',
+         '    if profiler is None or not profiler._is_profiler_enabled:',
+         '        return _NO_REGION',
+         '    return profiler.record_function(name)']),
+})
+PROSE.update({'obs/trace.py': (0, 18)})
 COPIES = ["ccmanager/watchdog.py", "ccmanager/remediation.py", "ccmanager/slicecoord.py",
           "ccmanager/multislice.py", "ccmanager/intent_journal.py", "ccmanager/informer.py",
           "ccmanager/metrics_server.py", "version.py", "labels.py", "utils/locks.py",

@@ -31,6 +31,16 @@ parallel over ``tp.size`` ranks, Megatron-style: each rank holds the shard
 and ``lm_head`` columns; the norm scales whole) and runs every attention
 path on its local heads. The GQA group size is unchanged, so a rank's query
 heads read its own KV heads. ``forward`` still returns the full logits.
+
+Profiler regions (``obs.trace.region``, nothing unless a ``torch.profiler``
+records; the innermost open region owns an operator): ``llama.embed``;
+per layer ``llama.block`` (its own operators are the residual adds),
+``llama.norm`` (every RMSNorm, the final one too), ``llama.layer_weights``
+(each module's slab of the stacked parameters and its cast: in the
+backward, the full-size zero, the gradient accumulation and the cast of
+``select`` and ``to``), ``llama.qkv``, ``llama.rope``, ``llama.attention``
+(layout, GQA repetition and whichever attention runs), ``llama.attn_out``
+and ``llama.mlp``; then ``llama.lm_head``. Names carry no layer index.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from tpu_cc_manager_torch.obs.trace import region
 from tpu_cc_manager_torch.ops.flash_attention import flash_attention
 from tpu_cc_manager_torch.ops.ring_attention import GroupRing, ring_attention
 from tpu_cc_manager_torch.parallel.tensor import copy_to_tp, gather_from_tp, reduce_from_tp
@@ -232,6 +243,13 @@ def _stacked(L: int, *shape: int, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty((L, *shape), dtype=dtype, device=device))
 
 
+def _layer_weights(layer: int | None, dtype, *params: torch.Tensor) -> list[torch.Tensor]:
+    """Each stacked parameter's slab of ``layer`` (the whole parameter for
+    None), local and cast to ``dtype``."""
+    with region("llama.layer_weights"):
+        return [(_local(p) if layer is None else _local(p)[layer]).to(dtype) for p in params]
+
+
 class RMSNorm(nn.Module):
     """RMS normalisation in f32, cast to ``dtype``. ``layers`` stacks one
     scale per layer (a leading L axis) and ``forward`` then takes the index."""
@@ -245,11 +263,11 @@ class RMSNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, layer: int | None = None):
-        scale = _local(self.scale)
-        scale = scale if layer is None else scale[layer]
-        x32 = x.float()
-        normed = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
-        return (normed * scale.float()).to(self.dtype)
+        with region("llama.norm"):
+            (scale,) = _layer_weights(layer, torch.float32, self.scale)
+            x32 = x.float()
+            normed = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
+            return (normed * scale).to(self.dtype)
 
 
 class Attention(nn.Module):
@@ -275,15 +293,27 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         H, KV, D = self.n_heads, self.n_kv_heads, cfg.head_dim
-        dt = cfg.dtype
-        if self.tp is not None:
-            x = copy_to_tp(x, self.tp)
-        q = (x @ _local(self.wq)[layer].to(dt)).reshape(B, S, H, D)
-        k = (x @ _local(self.wk)[layer].to(dt)).reshape(B, S, KV, D)
-        v = (x @ _local(self.wv)[layer].to(dt)).reshape(B, S, KV, D)
-        q = apply_rope(q, phases)
-        k = apply_rope(k, phases)
+        wq, wk, wv, wo = _layer_weights(layer, cfg.dtype, self.wq, self.wk, self.wv, self.wo)
+        with region("llama.qkv"):
+            if self.tp is not None:
+                x = copy_to_tp(x, self.tp)
+            q = (x @ wq).reshape(B, S, H, D)
+            k = (x @ wk).reshape(B, S, KV, D)
+            v = (x @ wv).reshape(B, S, KV, D)
+        with region("llama.rope"):
+            q = apply_rope(q, phases)
+            k = apply_rope(k, phases)
+        with region("llama.attention"):
+            out = self._attend(q, k, v, mask, layer_cache, position, use_flash, ring)
+        with region("llama.attn_out"):
+            out = out @ wo
+            return out if self.tp is None else reduce_from_tp(out, self.tp)
 
+    def _attend(self, q, k, v, mask, layer_cache, position, use_flash, ring):
+        """(B, S, H * D) attention output in ``cfg.dtype`` of the roped q, k
+        (B, S, heads, D) and v, through the cache when one is given."""
+        B, S, H, D = q.shape
+        KV, dt = self.n_kv_heads, self.cfg.dtype
         if layer_cache is not None:
             # The JAX model's dynamic_update_slice_in_dim, done in place: this
             # step's K/V land in the caller's (B, T, KV, D) buffers at
@@ -314,8 +344,7 @@ class Attention(nn.Module):
             probs = torch.softmax(scores, dim=-1).to(dt)
             out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(dt))
             out = out.reshape(B, S, H * D)
-        out = out @ _local(self.wo)[layer].to(dt)
-        return out if self.tp is None else reduce_from_tp(out, self.tp)
+        return out
 
 
 class MLP(nn.Module):
@@ -334,13 +363,15 @@ class MLP(nn.Module):
         self.tp = tp
 
     def forward(self, x, layer: int):
-        dt = self.dtype
-        if self.tp is not None:
-            x = copy_to_tp(x, self.tp)
-        gate = x @ _local(self.w_gate)[layer].to(dt)
-        up = x @ _local(self.w_up)[layer].to(dt)
-        out = (F.silu(gate) * up) @ _local(self.w_down)[layer].to(dt)
-        return out if self.tp is None else reduce_from_tp(out, self.tp)
+        w_gate, w_up, w_down = _layer_weights(layer, self.dtype, self.w_gate, self.w_up,
+                                              self.w_down)
+        with region("llama.mlp"):
+            if self.tp is not None:
+                x = copy_to_tp(x, self.tp)
+            gate = x @ w_gate
+            up = x @ w_up
+            out = (F.silu(gate) * up) @ w_down
+            return out if self.tp is None else reduce_from_tp(out, self.tp)
 
 
 class DecoderBlock(nn.Module):
@@ -356,9 +387,10 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x, layer: int, phases, mask, layer_cache=None, position=None,
                 use_flash: bool = False, ring=None):
-        x = x + self.attn(self.attn_norm(x, layer), layer, phases, mask,
-                          layer_cache, position, use_flash, ring)
-        return x + self.mlp(self.mlp_norm(x, layer), layer)
+        with region("llama.block"):
+            x = x + self.attn(self.attn_norm(x, layer), layer, phases, mask,
+                              layer_cache, position, use_flash, ring)
+            return x + self.mlp(self.mlp_norm(x, layer), layer)
 
 
 class LlamaModel(nn.Module):
@@ -447,7 +479,8 @@ class LlamaModel(nn.Module):
         and no cache, ``tokens`` is this rank's chunk of the sequence."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self._embed(tokens)
+        with region("llama.embed"):
+            x = self._embed(tokens)
         dev = tokens.device
         ring = mask = None
         if cache is None and cfg.ring_mesh is not None:
@@ -484,14 +517,15 @@ class LlamaModel(nn.Module):
             else:
                 x = self.blocks(*args)
         x = self.final_norm(x)
-        if self.tp is not None:
-            x = copy_to_tp(x, self.tp)
-        # bf16 params keep bf16 operands with an f32 result; f32 master
-        # weights keep the full-f32 product.
-        mm_dtype = cfg.dtype if cfg.param_dtype == cfg.dtype else torch.float32
-        logits = matmul_f32_out(x.to(mm_dtype), _local(self.lm_head).to(mm_dtype))
-        if self.tp is not None:
-            logits = gather_from_tp(logits, self.tp)
+        with region("llama.lm_head"):
+            if self.tp is not None:
+                x = copy_to_tp(x, self.tp)
+            # bf16 params keep bf16 operands with an f32 result; f32 master
+            # weights keep the full-f32 product.
+            mm_dtype = cfg.dtype if cfg.param_dtype == cfg.dtype else torch.float32
+            logits = matmul_f32_out(x.to(mm_dtype), _local(self.lm_head).to(mm_dtype))
+            if self.tp is not None:
+                logits = gather_from_tp(logits, self.tp)
         return logits, cache
 
     def _embed(self, tokens):

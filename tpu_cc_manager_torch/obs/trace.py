@@ -29,6 +29,19 @@ cannot carry ``:``), the agent parses it back with :func:`parse_parent`
 and opens its reconcile root under it, and ``/tracez?trace_id=`` then
 renders ONE causal tree from ``ctl rollout`` down through each node's
 drain/reset/smoke.
+
+Compute-path regions: :func:`region` is the span of the model and the
+train step, which open a few hundred a step and must cost nothing when no
+one looks. While a ``torch.profiler`` records, a region is
+``torch.profiler.record_function(name)``: it lands on the profiler's host
+timeline, on the clock of the device's kernels, and a backward operator's
+device work can be put down to the region open at the forward operator it
+differentiates (the profiler links the two by sequence number). Otherwise
+it is one shared null context, at the cost of one flag read. A region has
+no id, attributes, status or journal entry. Names are ``<layer>.<part>``
+(``llama.*`` in ``models/llama.py``, ``train.*`` in ``parallel/train.py``)
+and never start with ``bench.``, which a profiling harness may keep for
+its own ranges.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import secrets
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -217,3 +231,18 @@ def in_current_context(fn: Callable, *args, **kwargs) -> Callable[[], object]:
     nest under the caller's current span."""
     ctx = contextvars.copy_context()
     return lambda: ctx.run(fn, *args, **kwargs)
+
+
+_NO_REGION = contextlib.nullcontext()
+
+
+def region(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else one shared null context. The flag read is the one the profiler
+    sets as it starts recording and clears as it stops; torch is not
+    imported here, since no profiler records before something else has
+    imported it."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    if profiler is None or not profiler._is_profiler_enabled:
+        return _NO_REGION
+    return profiler.record_function(name)

@@ -26,6 +26,13 @@ Tensor parallelism (``tp`` > 1): each rank builds its tp shard of the model
 slice of the same mesh. So each parameter is one DTensor of its global
 shape on three mesh dims: ``torch.distributed.checkpoint`` keys tensors by
 name, and plain local shards of different tp ranks would collide there.
+
+Profiler regions of the step (``obs.trace.region``; the model's own
+``llama.*`` nest under ``train.forward``): ``train.optimizer`` (the
+gradients' release and the update, two a step), ``train.forward``,
+``train.loss``, ``train.backward`` and ``train.loss_mean``. FSDP2 opens
+ranges of its own around its hooks (``FSDP::pre_forward``'s all-gather,
+``FSDP::post_backward_reduce``, ...); none is wrapped again.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from torch.distributed.fsdp import fully_shard
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from tpu_cc_manager_torch.models.llama import TP_SHARD_DIMS, LlamaConfig, LlamaModel, check_tp
+from tpu_cc_manager_torch.obs.trace import region
 from tpu_cc_manager_torch.parallel.distributed import sum_over
 from tpu_cc_manager_torch.parallel.mesh import mesh_sizes
 from tpu_cc_manager_torch.parallel.sharding import (
@@ -146,14 +154,20 @@ def make_llama_train_step(cfg: LlamaConfig, mesh, state_shardings: dict):
                 raise ValueError(f"train_step: {name} is not sharded as state_shardings says")
         local = rows.local(tokens)
         inputs, targets = chunk.local(local[:, :-1]), chunk.local(local[:, 1:])
-        state.optimizer.zero_grad(set_to_none=True)
-        logits, _ = state.model(inputs)
-        loss = cross_entropy(logits, targets)
+        with region("train.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with region("train.forward"):
+            logits, _ = state.model(inputs)
+        with region("train.loss"):
+            loss = cross_entropy(logits, targets)
         del logits  # log_softmax keeps what its backward needs
-        loss.backward()
-        state.optimizer.step()
+        with region("train.backward"):
+            loss.backward()
+        with region("train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         # gloo has no AVG: sum each rank's mean over the groups, then divide.
-        return state, sum_over(loss.detach().clone(), groups) / n_data
+        with region("train.loss_mean"):
+            return state, sum_over(loss.detach().clone(), groups) / n_data
 
     return train_step
