@@ -5,9 +5,10 @@ CPU.
 A region is a ``record_function`` range only while a profiler records, and
 the profiler links each backward node to the forward operator it
 differentiates (a ``fwdbwd`` flow between two events of one ``Sequence
-number``): so the backward of the stacked parameters' ``select`` and cast
-belongs to ``llama.layer_weights``, and the flash attention's backward to
-``llama.attention``. Recording changes no number of the step.
+number``): so the backward of the stacked projections' cast and ``unbind``,
+and of the norm scales' ``select``, belongs to ``llama.layer_weights``, and
+the flash attention's backward to ``llama.attention``. Recording changes no
+number of the step.
 """
 
 import json
@@ -30,10 +31,10 @@ PER_LAYER = ("llama.block", "llama.qkv", "llama.rope", "llama.attention", "llama
 
 def regions_per_step(n_layers: int) -> dict[str, int]:
     """How often each region opens in one train step: the norm twice a layer
-    and once at the end; the stacked weights in each of a layer's four
-    modules and the final norm; the optimizer at the step's start and end."""
+    and once at the end; the stacked weights once for the projections of
+    every layer and in each norm; the optimizer at the step's start and end."""
     return {**{name: n_layers for name in PER_LAYER},
-            "llama.norm": 2 * n_layers + 1, "llama.layer_weights": 4 * n_layers + 1,
+            "llama.norm": 2 * n_layers + 1, "llama.layer_weights": 2 * n_layers + 2,
             "llama.embed": 1, "llama.lm_head": 1, "train.forward": 1, "train.loss": 1,
             "train.backward": 1, "train.loss_mean": 1, "train.optimizer": 2}
 
@@ -132,8 +133,8 @@ def test_backward_nodes_belong_to_the_region_of_their_forward_op(tmp_path, use_f
     cfg, state, step = train_step(use_flash)
     batch = tokens(cfg)
     step(state, batch)
-    slabs = {tuple(p.shape[1:]) for name, p in state.model.named_parameters()
-             if name.startswith("blocks.")}
+    projections = {tuple(p.shape) for name, p in state.model.named_parameters()
+                   if name.startswith(("blocks.attn.", "blocks.mlp."))}
     tl = Timeline(traced_events(lambda: step(state, batch), tmp_path / "t.json"))
     found = Counter()
     for node, op in tl.backward_links():
@@ -141,18 +142,18 @@ def test_backward_nodes_belong_to_the_region_of_their_forward_op(tmp_path, use_f
         name = node["name"]
         assert node["args"]["Sequence number"] == op["args"]["Sequence number"], name
         region = tl.innermost(op["tid"], float(op["ts"]))
-        stacked = op["name"] == "aten::select" or (
-            op["name"] == "aten::_to_copy" and tuple(op["args"]["Input Dims"][0]) in slabs)
-        if name in ("SelectBackward0", "ToCopyBackward0") and stacked:
+        stacked = op["name"] in ("aten::select", "aten::unbind") or (
+            op["name"] == "aten::_to_copy" and tuple(op["args"]["Input Dims"][0]) in projections)
+        if name in ("SelectBackward0", "UnbindBackward0", "ToCopyBackward0") and stacked:
             assert region == "llama.layer_weights", (name, op["args"]["Input Dims"])
             found[name] += 1
         if name == "_FlashAttentionBackward":
             assert region == "llama.attention"
             found[name] += 1
     L = cfg.n_layers
-    # Nine stacked parameters a layer (seven projections, two norm scales)
-    # are selected; the seven projections are cast from f32 to bf16.
-    assert found == {"SelectBackward0": 9 * L, "ToCopyBackward0": 7 * L,
+    # The seven stacked projections are each cast from f32 to bf16 whole and
+    # unbound once a step; the two norm scales are selected in every layer.
+    assert found == {"UnbindBackward0": 7, "ToCopyBackward0": 7, "SelectBackward0": 2 * L,
                      **({"_FlashAttentionBackward": L} if use_flash else {})}
 
 

@@ -34,13 +34,16 @@ heads read its own KV heads. ``forward`` still returns the full logits.
 
 Profiler regions (``obs.trace.region``, nothing unless a ``torch.profiler``
 records; the innermost open region owns an operator): ``llama.embed``;
+``llama.layer_weights`` once before the layers (each stacked projection
+cast to ``cfg.dtype`` whole and unbound into its L slabs; in the backward,
+one ``stack`` of the slabs' gradients and one cast back per projection);
 per layer ``llama.block`` (its own operators are the residual adds),
 ``llama.norm`` (every RMSNorm, the final one too), ``llama.layer_weights``
-(each module's slab of the stacked parameters and its cast: in the
-backward, the full-size zero, the gradient accumulation and the cast of
-``select`` and ``to``), ``llama.qkv``, ``llama.rope``, ``llama.attention``
-(layout, GQA repetition and whichever attention runs), ``llama.attn_out``
-and ``llama.mlp``; then ``llama.lm_head``. Names carry no layer index.
+in each norm (its scale's slab, in f32: in the backward, ``select``'s
+zero-filled gradient of the ``(L, dim)`` scale and its accumulation),
+``llama.qkv``, ``llama.rope``, ``llama.attention`` (layout, GQA repetition
+and whichever attention runs), ``llama.attn_out`` and ``llama.mlp``; then
+``llama.lm_head``. Names carry no layer index.
 """
 
 from __future__ import annotations
@@ -244,8 +247,10 @@ def _stacked(L: int, *shape: int, dtype, device) -> nn.Parameter:
 
 
 def _layer_weights(layer: int | None, dtype, *params: torch.Tensor) -> list[torch.Tensor]:
-    """Each stacked parameter's slab of ``layer`` (the whole parameter for
-    None), local and cast to ``dtype``."""
+    """Each parameter's slab of ``layer`` (the whole parameter for None),
+    local and cast to ``dtype``: the norm scales'. Their ``select`` makes a
+    zero-filled gradient of the whole ``(L, dim)`` scale in the backward,
+    which is small; the projections take :meth:`DecoderBlock.layer_slabs`."""
     with region("llama.layer_weights"):
         return [(_local(p) if layer is None else _local(p)[layer]).to(dtype) for p in params]
 
@@ -288,12 +293,13 @@ class Attention(nn.Module):
         self.cfg = cfg
         self.tp = tp
 
-    def forward(self, x, layer: int, phases, mask, layer_cache=None, position=None,
+    def forward(self, x, weights, phases, mask, layer_cache=None, position=None,
                 use_flash: bool = False, ring=None):
+        """``weights``: this layer's (wq, wk, wv, wo) slabs in ``cfg.dtype``."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, KV, D = self.n_heads, self.n_kv_heads, cfg.head_dim
-        wq, wk, wv, wo = _layer_weights(layer, cfg.dtype, self.wq, self.wk, self.wv, self.wo)
+        wq, wk, wv, wo = weights
         with region("llama.qkv"):
             if self.tp is not None:
                 x = copy_to_tp(x, self.tp)
@@ -359,12 +365,11 @@ class MLP(nn.Module):
         self.w_gate = _stacked(L, cfg.dim, hidden, **kw)
         self.w_up = _stacked(L, cfg.dim, hidden, **kw)
         self.w_down = _stacked(L, hidden, cfg.dim, **kw)
-        self.dtype = cfg.dtype
         self.tp = tp
 
-    def forward(self, x, layer: int):
-        w_gate, w_up, w_down = _layer_weights(layer, self.dtype, self.w_gate, self.w_up,
-                                              self.w_down)
+    def forward(self, x, weights):
+        """``weights``: this layer's (w_gate, w_up, w_down) slabs in ``cfg.dtype``."""
+        w_gate, w_up, w_down = weights
         with region("llama.mlp"):
             if self.tp is not None:
                 x = copy_to_tp(x, self.tp)
@@ -375,7 +380,8 @@ class MLP(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """All L decoder layers' parameters, stacked; ``forward`` runs one."""
+    """All L decoder layers' parameters, stacked; ``forward`` runs one on
+    that layer's slabs of the projections (:meth:`layer_slabs`)."""
 
     def __init__(self, cfg: LlamaConfig, device=None, tp=None):
         super().__init__()
@@ -384,13 +390,32 @@ class DecoderBlock(nn.Module):
         self.attn = Attention(cfg, device=device, tp=tp)
         self.mlp_norm = RMSNorm(*args, device=device)
         self.mlp = MLP(cfg, device=device, tp=tp)
+        self.dtype = cfg.dtype
 
-    def forward(self, x, layer: int, phases, mask, layer_cache=None, position=None,
+    def layer_slabs(self) -> list[tuple[tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]]:
+        """Per layer, its attention's (wq, wk, wv, wo) and its MLP's (w_gate,
+        w_up, w_down) slabs, local and in ``cfg.dtype``.
+
+        Each stacked projection is cast whole, once, then unbound into its L
+        slabs (views). Its backward is one ``stack`` of the L slab gradients
+        and one cast back, where a ``select`` a layer would zero-fill a
+        gradient the size of the whole parameter and add it in, L times. The
+        numbers are the same: a cast acts element by element, and each
+        element's gradient is its slab's."""
+        a, m = self.attn, self.mlp
+        with region("llama.layer_weights"):
+            slabs = [_local(p).to(self.dtype).unbind(0)
+                     for p in (a.wq, a.wk, a.wv, a.wo, m.w_gate, m.w_up, m.w_down)]
+        return [(w[:4], w[4:]) for w in zip(*slabs)]
+
+    def forward(self, x, layer: int, weights, phases, mask, layer_cache=None, position=None,
                 use_flash: bool = False, ring=None):
+        """``weights``: this layer's entry of :meth:`layer_slabs`."""
+        attn_weights, mlp_weights = weights
         with region("llama.block"):
-            x = x + self.attn(self.attn_norm(x, layer), layer, phases, mask,
+            x = x + self.attn(self.attn_norm(x, layer), attn_weights, phases, mask,
                               layer_cache, position, use_flash, ring)
-            return x + self.mlp(self.mlp_norm(x, layer), layer)
+            return x + self.mlp(self.mlp_norm(x, layer), mlp_weights)
 
 
 class LlamaModel(nn.Module):
@@ -509,9 +534,12 @@ class LlamaModel(nn.Module):
                 t[None, :] > t[:, None], float("-inf")
             )
         use_flash = cache is None and ring is None and cfg.resolved_use_flash(dev)
+        # Taken here, outside the remat checkpoint, so its cast is not redone.
+        weights = self.blocks.layer_slabs()
         for layer in range(cfg.n_layers):
             layer_cache = None if cache is None else (cache[0][layer], cache[1][layer])
-            args = (x, layer, phases, mask, layer_cache, position, use_flash, ring)
+            args = (x, layer, weights[layer], phases, mask, layer_cache, position, use_flash,
+                    ring)
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(self.blocks, *args, use_reentrant=False)
             else:
